@@ -1,0 +1,112 @@
+"""Variant registry: scheduling variants by name.
+
+The port of :mod:`repro.core.lookahead`, for the DMFs ported so far (LU):
+
+    fn = get_variant("lu", "la")     # -> lu_lookahead
+    fn = get_variant("lu", "la2")    # -> lu_lookahead with depth=2
+
+``"la<d>"`` resolves the look-ahead driver with ``depth=d`` (d panels in
+flight); ``"la"`` ≡ ``"la1"``.  The reference's ``la_mb`` (fused panel
+update) and ``tuned`` (autotuner cache) variants are not ported yet and
+raise ``KeyError`` naming the ROADMAP item that brings them.
+"""
+from __future__ import annotations
+
+import re
+from typing import Callable, Dict, Tuple
+
+from repro_torch.core import lu
+from repro_torch.core.pipeline import supports_depth
+
+_REGISTRY: Dict[str, Dict[str, Callable]] = {
+    "lu": {
+        "mtb": lu.lu_blocked,
+        "rtm": lu.lu_tiled,
+        "la": lu.lu_lookahead,
+    },
+}
+
+#: Reference variants that this port does not resolve yet, and why.
+NOT_PORTED = {
+    "la_mb": "the fused LU panel update arrives with ROADMAP Queue 2 item 5",
+    "tuned": "the autotuner arrives with ROADMAP Queue 1 item 13",
+}
+
+VARIANTS = ("mtb", "rtm", "la")
+FACTORIZATIONS = tuple(_REGISTRY)
+
+_DEPTH_RE = re.compile(r"^(la(?:_mb)?)([1-9]\d*)$")
+
+
+def parse_variant(variant: str) -> Tuple[str, int]:
+    """Split a variant name into (base, look-ahead depth).
+
+    ``"la3"`` → ``("la", 3)``; names without a depth suffix → depth 1.
+    """
+    m = _DEPTH_RE.match(variant)
+    if m:
+        return m.group(1), int(m.group(2))
+    return variant, 1
+
+
+def deepen(variant: str, depth: int) -> str:
+    """Canonical name of ``variant`` at ``depth`` (``("la", 2)`` → ``"la2"``);
+    the inverse of :func:`parse_variant`."""
+    base, d0 = parse_variant(variant)
+    if d0 != 1:
+        raise ValueError(f"variant {variant!r} already carries a depth")
+    if depth < 1:
+        raise ValueError(f"look-ahead depth must be >= 1, got {depth}")
+    if depth == 1:
+        return base
+    if base not in ("la", "la_mb"):
+        raise ValueError(
+            f"variant {base!r} has no look-ahead window; depth={depth} "
+            f"applies to 'la'/'la_mb' only")
+    return f"{base}{depth}"
+
+
+def list_variants(dmf: str) -> tuple[str, ...]:
+    """Variants that resolve through :func:`get_variant` for ``dmf``
+    (depth-d look-ahead advertised by its ``"la2"`` representative)."""
+    if dmf not in _REGISTRY:
+        raise KeyError(f"unknown DMF {dmf!r}; expected one of {FACTORIZATIONS}")
+    out = [v for v in VARIANTS if v in _REGISTRY[dmf]]
+    if supports_depth(_REGISTRY[dmf].get("la")):
+        out.insert(out.index("la") + 1, "la2")
+    return tuple(out)
+
+
+def _with_depth(fn: Callable, depth: int) -> Callable:
+    if depth == 1:
+        return fn
+
+    def deepened(a, b=128, **kw):
+        # an explicit depth= that disagrees with the name would run another
+        # schedule than the label claims
+        if kw.setdefault("depth", depth) != depth:
+            raise ValueError(
+                f"variant name pins depth={depth} but depth={kw['depth']} "
+                f"was passed; drop one of them")
+        return fn(a, b, **kw)
+
+    deepened.__name__ = f"{fn.__name__}_d{depth}"
+    deepened.__doc__ = f"{fn.__name__} with look-ahead depth {depth}."
+    deepened.supports_depth = True
+    return deepened
+
+
+def get_variant(dmf: str, variant: str) -> Callable:
+    """Resolve (factorization, scheduling variant) to a driver
+    ``fn(a, b=128, *, backend="cuda", device=None, ...)``."""
+    if dmf not in _REGISTRY:
+        raise KeyError(f"unknown DMF {dmf!r}; expected one of {FACTORIZATIONS}")
+    table = _REGISTRY[dmf]
+    base, depth = parse_variant(variant)
+    if base in NOT_PORTED:
+        raise KeyError(f"variant {variant!r} is not ported yet: "
+                       f"{NOT_PORTED[base]}; have {list_variants(dmf)}")
+    if base not in table or (depth > 1 and not supports_depth(table[base])):
+        raise KeyError(f"variant {variant!r} not available for {dmf!r}; "
+                       f"have {list_variants(dmf)}")
+    return _with_depth(table[base], depth)

@@ -1,0 +1,216 @@
+"""The generic static look-ahead engine: one loop, depth-d look-ahead.
+
+The port of :mod:`repro.core.pipeline`.  A DMF declares its algorithm once
+as a :class:`StepOps` record — how to **factor** a panel, **swap** the
+panel's row interchanges into the other columns, and **update** a range
+of trailing columns — and the engine emits every scheduling variant:
+
+* ``variant="mtb"`` — one panel/update pair per iteration (paper
+  Listing 3);
+* ``variant="rtm"`` — the trailing update fragmented into per-tile tasks
+  (Listing 4), through :attr:`StepOps.tiles`;
+* ``variant="la", depth=d`` — static look-ahead with d panels in flight
+  (Listing 5 for d = 1, its §5 generalization for d ≥ 2).
+
+Each loop issues its ops in the reference's order.  Every trailing column
+receives every panel's update exactly once and in panel order, so with
+column-decomposable kernels the variants give bitwise the same factors.
+
+In-place state.  The state is ``(a, aux)`` as in the reference, but ``a``
+is one working copy of the matrix that the hooks update in place through
+views; the engine copies the caller's input once, on the device the
+caller asked for (:func:`repro_torch.device.resolve_device`).  In this
+slice all ops run on one CUDA stream, in the order issued, so ``la``'s
+PF(k+1) does not yet overlap TU_k^R on the device.
+
+Not in this slice: the fused panel-update hook ``pu`` (``la_mb``), the
+hooks of the two-sided and row-exhausting DMFs, and the ``mesh=`` engine.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+
+from repro_torch.core.backend import Backend, resolve_backend
+from repro_torch.core.blocking import BlockSpec, panel_steps
+from repro_torch.device import resolve_device, working_copy
+from repro_torch.obs import tracer as _obs
+
+__all__ = ["StepOps", "factorize", "mark_depth_capable", "supports_depth"]
+
+#: Engine state: ``(a, aux)`` — the working matrix plus per-DMF side output
+#: (``ipiv`` for LU).
+State = Tuple[torch.Tensor, Any]
+
+_MISSING = object()
+
+
+@dataclasses.dataclass(frozen=True)
+class StepOps:
+    """One DMF, declared as the operations of a single panel iteration.
+
+    ``st`` is the :class:`~repro_torch.core.blocking.PanelStep` of the
+    panel being applied, not of the columns being updated.
+
+    * ``init(a) -> state`` — build ``(a, aux)`` around the working copy.
+    * ``factor(state, st, backend, panel_fn) -> (state, ctx)`` — PF(k):
+      factor panel ``st`` in place and return the context its updates need.
+    * ``update(state, ctx, st, c0, c1, backend) -> state`` — apply panel
+      ``st``'s transform to columns ``[c0, c1)``, ``c0 >= st.k_next``.
+    * ``finalize(state) -> result``.
+    * ``swap`` (optional) — apply the panel's row interchanges to the
+      columns outside it; eager after ``factor`` under mtb/rtm, deferred to
+      the next iteration under la (the pivot deferral of Listing 5).
+    * ``tiles`` (optional) — the RTM fragmentation of the whole trailing
+      update; a DMF without it has no ``rtm`` variant.
+    """
+
+    name: str
+    init: Callable[[torch.Tensor], State]
+    factor: Callable[..., Tuple[State, Any]]
+    update: Callable[..., State]
+    finalize: Callable[[State], Any]
+    swap: Optional[Callable[..., State]] = None
+    tiles: Optional[Callable[..., State]] = None
+
+
+def factorize(
+    ops: StepOps,
+    a,
+    b: BlockSpec = 128,
+    *,
+    variant: str = "la",
+    depth: int = 1,
+    backend="cuda",
+    panel_fn: Optional[Callable] = None,
+    device=None,
+    mesh=None,
+):
+    """Run one scheduling variant of ``ops`` over a copy of ``a``.
+
+    ``a`` may be a tensor or a NumPy array; it is copied once to
+    ``device`` (``None`` means the GPU) and never modified.  When the
+    caller passes no ``panel_fn``, the backend's panel registry
+    (``Backend.panel_fns``) supplies it — this is how ``backend="cuda"``
+    routes every variant through the GETF2 kernel.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (the distributed engine) is not ported yet: ROADMAP "
+            "Queue 1 item 17")
+    be = resolve_backend(backend)
+    work = working_copy(a, resolve_device(device))
+    if panel_fn is None and be.panel_fns is not None:
+        panel_fn = be.panel_fns.get(ops.name)
+    if variant == "mtb":
+        return _run_blocked(ops, work, b, be, panel_fn, tiled=False)
+    if variant == "rtm":
+        if ops.tiles is None:
+            raise ValueError(f"{ops.name!r} has no RTM (tiled) fragmentation")
+        return _run_blocked(ops, work, b, be, panel_fn, tiled=True)
+    if variant == "la":
+        if depth < 1:
+            raise ValueError(f"look-ahead depth must be >= 1, got {depth}")
+        return _run_la(ops, work, b, depth, be, panel_fn)
+    raise ValueError(
+        f"unknown scheduling variant {variant!r}; expected mtb/rtm/la")
+
+
+# ---------------------------------------------------------------------------
+# Every hook call below is bracketed by a span when a tracer is installed
+# (``repro_torch.obs.tracer.trace()``); with none — the default — each site
+# costs one ``tr is None`` predicate.  Span tags: ``step`` = panel index,
+# ``it`` = the iteration that ran the work, ``depth`` = step − it.
+# ---------------------------------------------------------------------------
+def _call(tr, cat, name, thunk, **tags):
+    return thunk() if tr is None else tr.wrap(cat, name, thunk, **tags)
+
+
+def _run_blocked(ops: StepOps, a, b, backend: Backend, panel_fn,
+                 tiled: bool):
+    """MTB: PF(k) ; SWAP(k) ; TU(k) over the whole trailing matrix as one
+    update — or, for RTM (``tiled``), fragmented into per-tile tasks."""
+    tr = _obs.active()
+    n = a.shape[1]
+    state = ops.init(a)
+    for i, st in enumerate(panel_steps(n, b)):
+        state, ctx = _call(tr, "PF", f"PF({i})",
+                           lambda: ops.factor(state, st, backend, panel_fn),
+                           step=i, it=i)
+        if ops.swap is not None:
+            state = _call(tr, "SWAP", f"SWAP({i})",
+                          lambda: ops.swap(state, ctx, st, backend),
+                          step=i, it=i)
+        if st.k_next < n:
+            state = _call(
+                tr, "TU", f"TU({i})",
+                (lambda: ops.tiles(state, ctx, st, backend)) if tiled else
+                (lambda: ops.update(state, ctx, st, st.k_next, n, backend)),
+                step=i, it=i, cols=(st.k_next, n), tiles=tiled)
+    return ops.finalize(state)
+
+
+def _run_la(ops: StepOps, a, b, depth, backend: Backend, panel_fn):
+    """LA(depth=d): PF(k+1) right after the narrow update of its columns,
+    ahead of the bulk TU_k^R; d panels in flight (Listing 5)."""
+    tr = _obs.active()
+    n = a.shape[1]
+    state = ops.init(a)
+    steps = list(panel_steps(n, b))
+    if not steps:
+        return ops.finalize(state)
+
+    # PF(0) runs before the pipelined loop (Listing 5 prologue).
+    state, ctx = _call(tr, "PF", "PF(0)",
+                       lambda: ops.factor(state, steps[0], backend, panel_fn),
+                       step=0, it=-1, depth=1)
+
+    for i, st in enumerate(steps):
+        # Panel-i interchanges, deferred from the iteration that factored
+        # it: applied to every column outside panel i before any
+        # iteration-i update touches them.
+        if ops.swap is not None:
+            state = _call(tr, "SWAP", f"SWAP({i})",
+                          lambda: ops.swap(state, ctx, st, backend),
+                          step=i, it=i)
+        if st.k_next >= n:
+            break
+
+        # PU chain: narrow updates of the next `dd` panels' columns;
+        # PF(i+1) fires right after the first one.
+        dd = min(depth, len(steps) - 1 - i)
+        nctx = _MISSING
+        for j in range(1, dd + 1):
+            stj = steps[i + j]
+            state = _call(
+                tr, "PU", f"PU({i}->{i + j})",
+                lambda: ops.update(state, ctx, st, stj.k, stj.k_next,
+                                   backend),
+                step=i, it=i, depth=j, cols=(stj.k, stj.k_next))
+            if j == 1:
+                state, nctx = _call(
+                    tr, "PF", f"PF({i + 1})",
+                    lambda: ops.factor(state, stj, backend, panel_fn),
+                    step=i + 1, it=i, depth=1)
+
+        # TU_right(i): the bulk update — data-independent of the PU chain.
+        r0 = steps[i + dd].k_next if dd >= 1 else st.k_next
+        if r0 < n:
+            state = _call(tr, "TU", f"TU({i})",
+                          lambda: ops.update(state, ctx, st, r0, n, backend),
+                          step=i, it=i, cols=(r0, n), inflight=dd)
+        if nctx is not _MISSING:
+            ctx = nctx
+    return ops.finalize(state)
+
+
+def mark_depth_capable(fn: Callable) -> Callable:
+    """Tag a driver as accepting ``depth=`` (pipeline-backed look-ahead)."""
+    fn.supports_depth = True
+    return fn
+
+
+def supports_depth(fn: Callable) -> bool:
+    return getattr(fn, "supports_depth", False)

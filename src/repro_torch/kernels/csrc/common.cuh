@@ -1,0 +1,29 @@
+// Shared helpers of the port's CUDA sources (plain C interface, no PyTorch
+// headers).  Every library exports repro_error_string so the Python loader
+// can turn a returned cudaError_t into text.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+extern "C" const char* repro_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Raise the dynamic shared-memory limit of `kernel` when a launch needs more
+// than the default 48 KiB; a launch above the limit is refused otherwise.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// Products and differences rounded once each, never contracted into an FMA,
+// where a kernel must repeat its plain PyTorch version bit for bit.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }

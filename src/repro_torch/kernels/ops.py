@@ -1,0 +1,76 @@
+"""The ``"cuda"`` backend: the hand-written kernels behind the
+:class:`~repro_torch.core.backend.Backend` vtable.
+
+The port of :mod:`repro.kernels.ops`'s ``PALLAS_BACKEND``:
+
+* ``gemm``   → the GEMM kernel (β = 0);
+* ``update`` → the same kernel as GEMM-accumulate, ``C -= A·B`` in place —
+  the trailing update, which the reference's backend never sent to its
+  fused kernel;
+* ``trsm``   → the TRSM kernel for left, non-transposed solves, lower or
+  upper; every other case goes to the library solve, as the reference
+  sends it to ``trsm_jnp``;
+* ``panel_fns={"lu": lu_panel}`` → the GETF2 panel kernel for every
+  scheduling variant;
+* ``lu_solve_small`` → the fused small solve, taken by
+  :func:`repro_torch.solve.triangular.lu_solve_packed`.
+
+On CPU tensors every wrapper runs its kernel's plain PyTorch version; on
+CUDA tensors it launches the kernel or raises.  There is no size at which
+a GPU call leaves its kernel for the plain version.
+"""
+from __future__ import annotations
+
+from repro_torch.core.backend import Backend, trsm_torch
+from repro_torch.kernels import blis_gemm as _bg
+from repro_torch.kernels import panel_lu as _plu
+from repro_torch.kernels import trsm as _tr
+
+__all__ = ["CUDA_BACKEND", "PANEL_KERNELS", "KERNELS", "SMALL_SOLVE_MAX_N",
+           "gemm", "update", "trsm", "lu_panel", "lu_solve_small",
+           "launches", "reset_launches"]
+
+gemm = _bg.gemm
+lu_panel = _plu.lu_panel
+lu_solve_small = _tr.lu_solve_small
+SMALL_SOLVE_MAX_N = _tr.MAX_ROWS
+
+
+def update(c, a, b):
+    """``c -= a·b`` in place through the GEMM-accumulate kernel."""
+    return _bg.gemm_accum(c, a, b, alpha=-1.0, out=c)
+
+
+def trsm(t, b, *, side="left", lower=True, trans=False, unit_diagonal=False,
+         out=None):
+    """Backend TRSM: the kernel for left non-transposed solves."""
+    if side == "left" and not trans:
+        return _tr.trsm(t, b, lower=lower, unit_diagonal=unit_diagonal,
+                        out=out)
+    return trsm_torch(t, b, side=side, lower=lower, trans=trans,
+                      unit_diagonal=unit_diagonal, out=out)
+
+
+PANEL_KERNELS = {"lu": lu_panel}
+
+CUDA_BACKEND = Backend(name="cuda", gemm=gemm, trsm=trsm, update=update,
+                       panel_fns=PANEL_KERNELS, fused_pu=None)
+
+#: Every kernel wrapper of the backend, by the name its launch count goes
+#: under (``gemm`` and ``update`` share the GEMM kernel's count).
+KERNELS = {
+    "gemm_accum": _bg.gemm_accum,
+    "trsm": _tr.trsm,
+    "lu_panel": _plu.lu_panel,
+    "lu_solve_small": _tr.lu_solve_small,
+}
+
+
+def launches() -> dict[str, int]:
+    """Launch count of every kernel since the last reset."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

@@ -36,6 +36,8 @@ def pytest_configure(config):
         "markers",
         "pallas: exercises Pallas kernels in interpret mode — the slow CI "
         "lane (`-m pallas`); everything else runs in the fast lane")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU; skips inside a fixture without one")
 
 
 def pytest_collection_modifyitems(config, items):
