@@ -6,16 +6,27 @@
 1. device: the card, its power limit, the torch/CUDA versions; TF32 off.
 2. build:  the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    nvcc, and what ``-Xptxas -v`` says of each (registers, smem, spills).
-3. kernels: every kernel of the main path against its plain PyTorch
+3. kernels: every kernel of the main paths against its plain PyTorch
    version on the card, at the main path's shapes (n = 8192, b = 128, in
    float64 and float32), with its time, the plain version's, one library
-   call's and the bound (bytes or operations) for the same work.
+   call's (or, for the fused panel updates, which no one library call
+   computes, the composed kernels' they replace) and the bound (bytes or
+   operations) for the same work.  The fused panel updates are held
+   bitwise to the composed kernels, pivots included.
 4. main path: ``gesv`` (LU with partial pivoting, then the solves) through
-   the port's entry points, under ``mtb``/``la``/``la2`` at n = 8192 and
-   ``rtm`` at n = 2048, plus n = 128 with block 128 (the fused small
-   solve): scaled residuals, look-ahead factors bitwise equal to ``mtb``'s,
-   launch counts, wall times, the cuSOLVER baseline and the tracer's
-   PF/TU/PU/SWAP shares.
+   the port's entry points, under ``mtb``/``la``/``la2``/``la_mb`` at
+   n = 8192 and ``rtm`` at n = 2048, plus n = 128 with block 128 (the fused
+   small solve): scaled residuals, look-ahead factors bitwise equal to
+   ``mtb``'s, launch counts, wall times, the cuSOLVER baseline and the
+   tracer's PF/TU/PU/SWAP shares under ``la`` and ``la_mb``.
+5. second path: ``posv`` (Cholesky, then the solves) on a symmetric
+   positive-definite input, under ``mtb``/``la``/``la2``/``la_mb`` at
+   n = 8192 and ``rtm`` at n = 2048: the same checks and times, against
+   ``torch.linalg.cholesky`` + ``torch.cholesky_solve``, and the time of
+   one PyTorch-op ``cholesky_unblocked`` of a 128 x 128 block.
+
+Launch counts are set to 0 just before each path and read just after it;
+each kernel of a path must have launched in it.
 
 Each phase prints one JSON line and raises on failure (non-zero exit).
 Then come the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
@@ -43,6 +54,10 @@ HBM_BYTES_PER_S = 3.35e12
 RESIDUAL_LIMIT = 100.0
 
 
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -60,9 +75,11 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core.backend import no_tf32
+    from repro_torch.core.cholesky import cholesky_panel, cholesky_unblocked
     from repro_torch.kernels import _build, blis_gemm, ops, panel_lu, trsm
+    from repro_torch.kernels import fused_panel_update as fpu
     from repro_torch.obs import tracer
-    from repro_torch.solve import gesv, lu_factor
+    from repro_torch.solve import cholesky_factor, gesv, lu_factor
 
     dev = torch.device("cuda")
 
@@ -215,6 +232,103 @@ def main() -> int:
             bound=bound(flops, 2 * N * BLOCK * size + 4 * BLOCK))
         del panel0, pk, pp, work
 
+        def spd(n):
+            g = randn(n, n)
+            return g @ g.mT / n + torch.eye(n, dtype=dtype, device=dev)
+
+        # right transposed TRSM: X L^T = B, the Cholesky L21 solve, 8064 x 128
+        l_c = torch.linalg.cholesky(spd(BLOCK)).contiguous()
+        rhs_r = randn(m, BLOCK)
+        rout = torch.empty_like(rhs_r)
+        got = trsm.trsm_right_lower_t(l_c, rhs_r, out=rout)
+        sync()
+        err, mx = compare(got, trsm.trsm_right_lower_t_plain(l_c, rhs_r))
+        res["trsm_right_lower_t"] = dict(
+            shape=[m, BLOCK], rel_err=err, max_abs_err=mx,
+            tol=tolerance(dtype, BLOCK),
+            ms=time_ms(lambda: trsm.trsm_right_lower_t(l_c, rhs_r, out=rout),
+                       10),
+            plain_ms=time_ms(
+                lambda: trsm.trsm_right_lower_t_plain(l_c, rhs_r), 3),
+            library_ms=time_ms(lambda: torch.linalg.solve_triangular(
+                l_c.mT, rhs_r, upper=True, left=False), 10),
+            bound=bound(float(m) * BLOCK * BLOCK,
+                        (tri + 2 * m * BLOCK) * size))
+        del rhs_r, rout
+
+        def fused_row(name, fused, plain, composed, ops_in, outs, flops,
+                      nbytes, tol_k):
+            """A fused panel update on fresh copies of its in-place operands
+            ``outs`` (indices into ``ops_in``): bitwise against the composed
+            kernels it replaces (pivots too), within 4·k·eps of its plain
+            version (which rounds each product where the kernels use FMA),
+            timed with the copies' own time subtracted."""
+            def fresh():
+                args = list(ops_in)
+                for i in outs:
+                    args[i] = work[i].copy_(ops_in[i])
+                return args
+
+            work = {i: ops_in[i].clone() for i in outs}
+            got = [t.clone() for t in _as_tuple(fused(*fresh()))]
+            want = [t.clone() for t in _as_tuple(composed(*fresh()))]
+            ref = [t.clone() for t in _as_tuple(plain(*fresh()))]
+            sync()
+            check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                  f"{name} {dtype}: not bitwise equal to the composed kernels")
+            err, mx = compare(got[-1] if len(got) == 1 else got[1],
+                              ref[-1] if len(ref) == 1 else ref[1])
+            if len(got) == 3:
+                check(torch.equal(got[2], ref[2]),
+                      f"{name} {dtype}: pivots differ from the plain version's")
+            copy_ms = time_ms(fresh, 10)
+            res[name] = dict(
+                shape=[m, BLOCK, BLOCK], bitwise_equal_to_composed=True,
+                pivots_equal=len(got) == 3 or None, rel_err=err,
+                max_abs_err=mx, tol=tolerance(dtype, tol_k),
+                ms=time_ms(lambda: fused(*fresh()), 10) - copy_ms,
+                plain_ms=time_ms(lambda: plain(*fresh()), 3) - copy_ms,
+                composed_ms=time_ms(lambda: composed(*fresh()), 10) - copy_ms,
+                library_ms=None, bound=bound(flops, nbytes))
+
+        # fused LU panel update at the first PU: L11 128 x 128, L21 8064 x 128
+        l11 = torch.linalg.lu_factor(randn(BLOCK, BLOCK)).LU.contiguous()
+        lu_in = (l11, randn(m, BLOCK), randn(BLOCK, BLOCK), randn(m, BLOCK))
+
+        def composed_lu(l11, l21, a1l, a2l):
+            ops.trsm(l11, a1l, lower=True, unit_diagonal=True, out=a1l)
+            ops.update(a2l, l21, a1l)
+            return a1l, a2l, ops.lu_panel(a2l)
+
+        getf2 = sum((m - j - 1) * (1 + 2 * (BLOCK - j - 1))
+                    for j in range(BLOCK))
+        fused_row("fused_lu_panel_update", fpu.fused_lu_panel_update,
+                  fpu.fused_lu_panel_update_plain, composed_lu, lu_in, (2, 3),
+                  BLOCK * (BLOCK - 1) * BLOCK + 2.0 * m * BLOCK * BLOCK
+                  + getf2,
+                  (tri + m * BLOCK + 2 * BLOCK * BLOCK + 2 * m * BLOCK) * size
+                  + 4 * BLOCK, 2 * BLOCK)
+        del lu_in
+
+        # fused Cholesky panel update at the first PU: lrow = L21[:128]
+        l21 = 0.1 * randn(m, BLOCK)
+        panel_c = 0.1 * randn(m, BLOCK)
+        panel_c[:BLOCK] = l21[:BLOCK] @ l21[:BLOCK].mT + spd(BLOCK)
+
+        def composed_chol(lrow, l21, panel):
+            ops.update(panel, l21, lrow.mT.contiguous())
+            return cholesky_panel(panel, BLOCK, "cuda")
+
+        fused_row("fused_cholesky_panel_update",
+                  fpu.fused_cholesky_panel_update,
+                  fpu.fused_cholesky_panel_update_plain, composed_chol,
+                  (l21[:BLOCK], l21, panel_c), (2,),
+                  2.0 * m * BLOCK * BLOCK + BLOCK ** 3 / 3.0
+                  + float(m - BLOCK) * BLOCK * BLOCK,
+                  (BLOCK * BLOCK + 2 * m * BLOCK + m * BLOCK) * size,
+                  2 * BLOCK)
+        del l21, panel_c
+
         # fused small solve: packed 128 x 128 LU, 16 right-hand sides
         lu_s = torch.linalg.lu_factor(randn(SMALL_N, SMALL_N)).LU.contiguous()
         rhs_s = randn(SMALL_N, NRHS)
@@ -241,6 +355,17 @@ def main() -> int:
         emit({"phase": "kernels", "dtype": str(dtype), "results": res})
 
     # ---- 4. the main path through the entry points -------------------------
+    def emit_trace(path, variant, dtype, run):
+        """PF/TU/PU/SWAP shares of one traced factor (spans fenced)."""
+        with tracer.trace() as tr:
+            run()
+        cats = ("PF", "TU", "PU", "SWAP")
+        total = sum(tr.total(c) for c in cats)
+        emit({"phase": f"trace_{variant}", "path": path, "dtype": str(dtype),
+              "n": N, "seconds": {c: tr.total(c) for c in cats},
+              "shares": {c: tr.total(c) / total for c in cats},
+              "fused_spans": sum(1 for sp in tr.spans if sp.meta.get("fused"))})
+
     def scaled_residual(a, x, b, dtype):
         a, x, b = a.double(), x.double(), b.double()
         num = float((a @ x - b).norm())
@@ -255,8 +380,9 @@ def main() -> int:
         a = torch.randn(N, N, generator=gen, device=dev, dtype=dtype)
         b = torch.randn(N, NRHS, generator=gen, device=dev, dtype=dtype)
         base = None
-        for variant in ("mtb", "la", "la2"):
-            before = panel_lu.lu_panel.launches
+        for variant in ("mtb", "la", "la2", "la_mb"):
+            before = (panel_lu.lu_panel.launches
+                      + fpu.fused_lu_panel_update.launches)
             sync()
             t0 = time.perf_counter()
             fac = lu_factor(a, BLOCK, variant=variant)
@@ -265,7 +391,8 @@ def main() -> int:
             x = fac.solve(b)
             sync()
             t2 = time.perf_counter()
-            panels = panel_lu.lu_panel.launches - before
+            panels = (panel_lu.lu_panel.launches
+                      + fpu.fused_lu_panel_update.launches - before)
             check(panels == npanels,
                   f"{variant}: {panels} panel launches, expected {npanels}")
             res = scaled_residual(a, x, b, dtype)
@@ -303,14 +430,10 @@ def main() -> int:
               "scaled_residual": scaled_residual(a, x, b, dtype)})
         del lu_lib, piv_lib, x
 
-        # tracer shares of one la run
-        with tracer.trace() as tr:
-            lu_factor(a, BLOCK, variant="la")
-        cats = ("PF", "TU", "PU", "SWAP")
-        total = sum(tr.total(c) for c in cats)
-        emit({"phase": "trace_la", "dtype": str(dtype), "n": N,
-              "seconds": {c: tr.total(c) for c in cats},
-              "shares": {c: tr.total(c) / total for c in cats}})
+        # tracer shares of one la and one la_mb run
+        for variant in ("la", "la_mb"):
+            emit_trace("gesv", variant, dtype,
+                       lambda: lu_factor(a, BLOCK, variant=variant))
 
         # rtm at a smaller n, bitwise against mtb there
         a2, b2 = a[:RTM_N, :RTM_N], b[:RTM_N]
@@ -342,20 +465,123 @@ def main() -> int:
               "small_solve": True})
         del a, b, a2, b2, a3, b3, f_mtb, f_rtm, x
     counts = ops.launches()
-    for name, count in counts.items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
+    for name in ("gemm_accum", "trsm", "lu_panel", "lu_solve_small",
+                 "fused_lu_panel_update"):
+        check(counts[name] > 0, f"kernel {name} was not launched on the "
+              "gesv path")
 
-    # ---- 5. report ---------------------------------------------------------
+    # ---- 5. posv: Cholesky on a symmetric positive-definite input ----------
+    chol_flops = N ** 3 / 3.0
+    ops.reset_launches()
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+        g = torch.randn(N, N, generator=gen, device=dev, dtype=dtype)
+        a = torch.matmul(g, g.mT) / N
+        a.diagonal().add_(1.0)
+        del g
+        b = torch.randn(N, NRHS, generator=gen, device=dev, dtype=dtype)
+        base = None
+        for variant in ("mtb", "la", "la2", "la_mb"):
+            sync()
+            t0 = time.perf_counter()
+            fac = cholesky_factor(a, BLOCK, variant=variant)
+            sync()
+            t1 = time.perf_counter()
+            x = fac.solve(b)
+            sync()
+            t2 = time.perf_counter()
+            res = scaled_residual(a, x, b, dtype)
+            check(res < RESIDUAL_LIMIT, f"posv {variant} {dtype}: residual {res}")
+            if base is None:
+                base = fac
+            else:
+                check(torch.equal(fac.l, base.l),
+                      f"posv {variant} {dtype}: factor differs from mtb's")
+            emit({"phase": "posv", "dtype": str(dtype), "n": N,
+                  "block": BLOCK, "nrhs": NRHS, "variant": variant,
+                  "factor_ms": (t1 - t0) * 1e3, "solve_ms": (t2 - t1) * 1e3,
+                  "factor_gflops": chol_flops / (t1 - t0) / 1e9,
+                  "scaled_residual": res, "bitwise_equal_to_mtb": True})
+        del fac, x
+
+        # the vendor-library baseline (cuSOLVER potrf + potrs), warmed up
+        no_tf32()
+        torch.cholesky_solve(b, torch.linalg.cholesky(a))
+        sync()
+        t0 = time.perf_counter()
+        l_lib = torch.linalg.cholesky(a)
+        sync()
+        t1 = time.perf_counter()
+        x = torch.cholesky_solve(b, l_lib)
+        sync()
+        t2 = time.perf_counter()
+        emit({"phase": "posv_library", "dtype": str(dtype), "n": N,
+              "call": "torch.linalg.cholesky + torch.cholesky_solve",
+              "factor_ms": (t1 - t0) * 1e3, "solve_ms": (t2 - t1) * 1e3,
+              "factor_gflops": chol_flops / (t1 - t0) / 1e9,
+              "scaled_residual": scaled_residual(a, x, b, dtype)})
+        del l_lib, x
+
+        # one PyTorch-op cholesky_unblocked of a diagonal block: the part of
+        # the composed Cholesky PF that runs as PyTorch ops, once per panel
+        blk = a[:BLOCK, :BLOCK].clone()
+        unb_ms = time_ms(lambda: cholesky_unblocked(blk.copy_(a[:BLOCK,
+                                                                 :BLOCK])), 5)
+        emit({"phase": "cholesky_unblocked", "dtype": str(dtype),
+              "block": BLOCK, "ms_per_call": unb_ms, "calls_per_factor": npanels,
+              "ms_per_factor": unb_ms * npanels})
+        for variant in ("la", "la_mb"):
+            emit_trace("posv", variant, dtype,
+                       lambda: cholesky_factor(a, BLOCK, variant=variant))
+
+        # rtm at a smaller n (a principal submatrix: SPD too), bitwise
+        a2, b2 = a[:RTM_N, :RTM_N], b[:RTM_N]
+        f_mtb = cholesky_factor(a2, BLOCK, variant="mtb")
+        sync()
+        t0 = time.perf_counter()
+        f_rtm = cholesky_factor(a2, BLOCK, variant="rtm")
+        sync()
+        t1 = time.perf_counter()
+        res = scaled_residual(a2, f_rtm.solve(b2), b2, dtype)
+        check(res < RESIDUAL_LIMIT, f"posv rtm {dtype}: residual {res}")
+        check(torch.equal(f_rtm.l, f_mtb.l),
+              f"posv rtm {dtype}: factor differs from mtb's")
+        emit({"phase": "posv", "dtype": str(dtype), "n": RTM_N,
+              "block": BLOCK, "variant": "rtm", "factor_ms": (t1 - t0) * 1e3,
+              "scaled_residual": res, "bitwise_equal_to_mtb": True})
+        del a, b, a2, b2, f_mtb, f_rtm, base
+    counts_posv = ops.launches()
+    for name in ("gemm_accum", "trsm", "trsm_right_lower_t",
+                 "fused_cholesky_panel_update"):
+        check(counts_posv[name] > 0, f"kernel {name} was not launched on the "
+              "posv path")
+    counts = {k: counts[k] + counts_posv[k] for k in counts}
+    for name, count in counts.items():
+        check(count > 0, f"kernel {name} was not launched on the main paths")
+
+    # ---- 6. report ---------------------------------------------------------
     sources = {"gemm_accum": "gemm.cu", "trsm": "trsm.cu",
-               "lu_panel": "panel_lu.cu", "lu_solve_small": "trsm.cu"}
+               "lu_panel": "panel_lu.cu", "lu_solve_small": "trsm.cu",
+               "trsm_right_lower_t": "trsm.cu",
+               "fused_lu_panel_update": "fused_pu.cu",
+               "fused_cholesky_panel_update": "fused_pu.cu"}
     replaces = {"gemm_accum": "src/repro/kernels/blis_gemm.py:126",
                 "trsm": "src/repro/kernels/trsm.py:42",
                 "lu_panel": "src/repro/kernels/panel_lu.py:34",
-                "lu_solve_small": "src/repro/kernels/trsm.py:115"}
+                "lu_solve_small": "src/repro/kernels/trsm.py:115",
+                "trsm_right_lower_t": "src/repro/kernels/trsm.py:69",
+                "fused_lu_panel_update":
+                    "src/repro/kernels/fused_panel_update.py:112",
+                "fused_cholesky_panel_update":
+                    "src/repro/kernels/fused_panel_update.py:194"}
+
     def numbers(r):
-        return {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-                "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
+        out = {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+               "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
+        if "composed_ms" in r:
+            out["composed_ms"] = r["composed_ms"]
+        return out
 
     kernels = []
     for name in ops.KERNELS:   # float64 at the top level, float32 beside it

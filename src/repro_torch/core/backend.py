@@ -81,8 +81,9 @@ class Backend:
     ``panel_fns`` is an optional per-DMF panel-kernel registry keyed by
     ``StepOps.name``: when set, :func:`repro_torch.core.pipeline.factorize`
     takes its default ``panel_fn=`` from it (this is how ``"cuda"`` routes
-    every variant through the GETF2 kernel).  ``fused_pu`` is the slot of
-    the fused panel-update kernels; no backend fills it yet.
+    every variant through the GETF2 kernel).  ``fused_pu`` is the per-DMF
+    registry of fused panel-update kernels that ``la_mb`` takes when the
+    caller passes none (``"cuda"`` fills it).
     """
 
     name: str

@@ -1,13 +1,16 @@
 """Variant registry: scheduling variants by name.
 
-The port of :mod:`repro.core.lookahead`, for the DMFs ported so far (LU):
+The port of :mod:`repro.core.lookahead`, for the DMFs ported so far (LU,
+Cholesky):
 
-    fn = get_variant("lu", "la")     # -> lu_lookahead
-    fn = get_variant("lu", "la2")    # -> lu_lookahead with depth=2
+    fn = get_variant("lu", "la")          # -> lu_lookahead
+    fn = get_variant("lu", "la2")         # -> lu_lookahead with depth=2
+    fn = get_variant("cholesky", "la_mb") # -> cholesky_lookahead, fused PU
 
-``"la<d>"`` resolves the look-ahead driver with ``depth=d`` (d panels in
-flight); ``"la"`` ≡ ``"la1"``.  The reference's ``la_mb`` (fused panel
-update) and ``tuned`` (autotuner cache) variants are not ported yet and
+``"la<d>"`` / ``"la_mb<d>"`` resolve the look-ahead driver with ``depth=d``
+(d panels in flight); ``"la"`` ≡ ``"la1"``.  ``la_mb`` plugs the fused
+panel-update kernel into the look-ahead driver.  The reference's ``tuned``
+(autotuner cache) and ``tiled`` (tile-DAG) variants are not ported yet and
 raise ``KeyError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
@@ -15,7 +18,8 @@ from __future__ import annotations
 import re
 from typing import Callable, Dict, Tuple
 
-from repro_torch.core import lu
+from repro_torch.core import cholesky, lu
+from repro_torch.core.backend import resolve_backend
 from repro_torch.core.pipeline import supports_depth
 
 _REGISTRY: Dict[str, Dict[str, Callable]] = {
@@ -24,12 +28,17 @@ _REGISTRY: Dict[str, Dict[str, Callable]] = {
         "rtm": lu.lu_tiled,
         "la": lu.lu_lookahead,
     },
+    "cholesky": {
+        "mtb": cholesky.cholesky_blocked,
+        "rtm": cholesky.cholesky_tiled,
+        "la": cholesky.cholesky_lookahead,
+    },
 }
 
 #: Reference variants that this port does not resolve yet, and why.
 NOT_PORTED = {
-    "la_mb": "the fused LU panel update arrives with ROADMAP Queue 2 item 5",
     "tuned": "the autotuner arrives with ROADMAP Queue 1 item 13",
+    "tiled": "the tile-DAG backend arrives with ROADMAP Queue 1 item 15",
 }
 
 VARIANTS = ("mtb", "rtm", "la")
@@ -72,8 +81,10 @@ def list_variants(dmf: str) -> tuple[str, ...]:
     if dmf not in _REGISTRY:
         raise KeyError(f"unknown DMF {dmf!r}; expected one of {FACTORIZATIONS}")
     out = [v for v in VARIANTS if v in _REGISTRY[dmf]]
-    if supports_depth(_REGISTRY[dmf].get("la")):
-        out.insert(out.index("la") + 1, "la2")
+    if "la" in _REGISTRY[dmf]:
+        if supports_depth(_REGISTRY[dmf]["la"]):
+            out.insert(out.index("la") + 1, "la2")
+        out.append("la_mb")
     return tuple(out)
 
 
@@ -96,6 +107,24 @@ def _with_depth(fn: Callable, depth: int) -> Callable:
     return deepened
 
 
+def _make_la_mb(dmf: str, la: Callable) -> Callable:
+    def la_mb(a, b=128, **kw):
+        # an explicit fused_pu= wins, then the backend's own registry
+        # (Backend.fused_pu), then the CUDA kernels' — so backend="torch"
+        # still runs the fused kernel, as the reference's jnp backend still
+        # calls its Pallas kernel
+        from repro_torch.kernels import ops as kops
+
+        if "fused_pu" not in kw:
+            default = kops.FUSED_PU.get(dmf)
+            reg = resolve_backend(kw.get("backend", "cuda")).fused_pu
+            kw["fused_pu"] = default if reg is None else reg.get(dmf, default)
+        return la(a, b, **kw)
+
+    la_mb.__name__ = f"{la.__name__}_mb"
+    return la_mb
+
+
 def get_variant(dmf: str, variant: str) -> Callable:
     """Resolve (factorization, scheduling variant) to a driver
     ``fn(a, b=128, *, backend="cuda", device=None, ...)``."""
@@ -106,6 +135,8 @@ def get_variant(dmf: str, variant: str) -> Callable:
     if base in NOT_PORTED:
         raise KeyError(f"variant {variant!r} is not ported yet: "
                        f"{NOT_PORTED[base]}; have {list_variants(dmf)}")
+    if base == "la_mb" and "la" in table:
+        return _make_la_mb(dmf, _with_depth(table["la"], depth))
     if base not in table or (depth > 1 and not supports_depth(table[base])):
         raise KeyError(f"variant {variant!r} not available for {dmf!r}; "
                        f"have {list_variants(dmf)}")

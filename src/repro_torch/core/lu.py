@@ -6,7 +6,7 @@ The port of :mod:`repro.core.lu`.  The algorithm is declared once as
 * :func:`lu_blocked`   — right-looking blocked GETRF, the **MTB** variant;
 * :func:`lu_tiled`     — **RTM**: the trailing update in per-tile tasks;
 * :func:`lu_lookahead` — **LA**: static look-ahead, ``depth`` panels in
-  flight.
+  flight, and **LA_MB** with ``fused_pu=`` (the fused panel update).
 
 Pivoting follows GETRF: ``ipiv[j]`` (0-based, global, int32) is the row
 swapped with row ``j`` at step ``j``, and interchanges apply to whole rows,
@@ -190,6 +190,19 @@ def _tiles(state, ctx, st, backend):
     return state
 
 
+def _pu(state, ctx, st, st_next, backend, fused):
+    # LA_MB: TRSM + GEMM + GETF2 in one kernel —
+    # ``fused(l11, l21, a1l, a2l) -> (u12, packed, piv)`` writes U12 into
+    # a1l and the packed panel into a2l in place.
+    a, ipiv = state
+    k, bk, k_next = st.k, st.bk, st.k_next
+    lcols = slice(st_next.k, st_next.k_next)
+    _, _, piv = fused(a[k : k + bk, k : k + bk], a[k_next:, k : k + bk],
+                      a[k : k + bk, lcols], a[k_next:, lcols])
+    ipiv[st_next.k : st_next.k_next] = piv + st_next.k
+    return state, _LUCtx(piv)
+
+
 LU_OPS = StepOps(
     name="lu",
     init=_init,
@@ -198,6 +211,7 @@ LU_OPS = StepOps(
     finalize=lambda state: state,
     swap=_swap,
     tiles=_tiles,
+    pu=_pu,
 )
 
 
@@ -222,14 +236,17 @@ def lu_tiled(a, b: BlockSpec = 128, *, backend="cuda",
 
 @pipeline.mark_depth_capable
 def lu_lookahead(a, b: BlockSpec = 128, *, backend="cuda",
-                 panel_fn: Optional[Callable] = None, depth: int = 1,
+                 panel_fn: Optional[Callable] = None,
+                 fused_pu: Optional[Callable] = None, depth: int = 1,
                  device=None):
     """LUpp with static look-ahead; ``depth`` panels in flight.
 
     The pivots of PF(k+1) are applied at the start of iteration k+1 (row
     interchanges commute with the row-parallel trailing update), so the
-    factors equal the blocked variant's at every depth.
+    factors equal the blocked variant's at every depth.  ``fused_pu``: a
+    fused panel update ``(l11, l21, a1l, a2l) -> (u12, packed, piv)``
+    (LA_MB), writing into ``a1l`` and ``a2l`` in place.
     """
     return pipeline.factorize(LU_OPS, a, b, variant="la", depth=depth,
                               backend=backend, panel_fn=panel_fn,
-                              device=device)
+                              fused_pu=fused_pu, device=device)

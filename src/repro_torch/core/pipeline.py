@@ -10,7 +10,9 @@ of trailing columns — and the engine emits every scheduling variant:
 * ``variant="rtm"`` — the trailing update fragmented into per-tile tasks
   (Listing 4), through :attr:`StepOps.tiles`;
 * ``variant="la", depth=d`` — static look-ahead with d panels in flight
-  (Listing 5 for d = 1, its §5 generalization for d ≥ 2).
+  (Listing 5 for d = 1, its §5 generalization for d ≥ 2);
+* ``variant="la", fused_pu=...`` — LA_MB: the first narrow update and the
+  next panel factorization as one fused kernel (:attr:`StepOps.pu`).
 
 Each loop issues its ops in the reference's order.  Every trailing column
 receives every panel's update exactly once and in panel order, so with
@@ -23,8 +25,8 @@ caller asked for (:func:`repro_torch.device.resolve_device`).  In this
 slice all ops run on one CUDA stream, in the order issued, so ``la``'s
 PF(k+1) does not yet overlap TU_k^R on the device.
 
-Not in this slice: the fused panel-update hook ``pu`` (``la_mb``), the
-hooks of the two-sided and row-exhausting DMFs, and the ``mesh=`` engine.
+Not ported yet: the hooks of the two-sided and row-exhausting DMFs, and
+the ``mesh=`` engine.
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ from repro_torch.obs import tracer as _obs
 __all__ = ["StepOps", "factorize", "mark_depth_capable", "supports_depth"]
 
 #: Engine state: ``(a, aux)`` — the working matrix plus per-DMF side output
-#: (``ipiv`` for LU).
+#: (``ipiv`` for LU, None for Cholesky).
 State = Tuple[torch.Tensor, Any]
 
 _MISSING = object()
@@ -65,6 +67,11 @@ class StepOps:
       the next iteration under la (the pivot deferral of Listing 5).
     * ``tiles`` (optional) — the RTM fragmentation of the whole trailing
       update; a DMF without it has no ``rtm`` variant.
+    * ``pu(state, ctx, st, st_next, backend, fused) -> (state, ctx_next)``
+      (optional) — the fused panel update of LA_MB: ``update`` of panel
+      ``st_next``'s columns and its ``factor`` in one call of ``fused``,
+      which writes its results into the working copy in place.  Only
+      consulted when the caller passes ``fused_pu=``.
     """
 
     name: str
@@ -74,6 +81,7 @@ class StepOps:
     finalize: Callable[[State], Any]
     swap: Optional[Callable[..., State]] = None
     tiles: Optional[Callable[..., State]] = None
+    pu: Optional[Callable[..., Tuple[State, Any]]] = None
 
 
 def factorize(
@@ -85,6 +93,7 @@ def factorize(
     depth: int = 1,
     backend="cuda",
     panel_fn: Optional[Callable] = None,
+    fused_pu: Optional[Callable] = None,
     device=None,
     mesh=None,
 ):
@@ -94,7 +103,8 @@ def factorize(
     ``device`` (``None`` means the GPU) and never modified.  When the
     caller passes no ``panel_fn``, the backend's panel registry
     (``Backend.panel_fns``) supplies it — this is how ``backend="cuda"``
-    routes every variant through the GETF2 kernel.
+    routes every variant through the GETF2 kernel.  ``fused_pu`` (``la``
+    only) is the fused panel-update kernel of LA_MB.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -113,7 +123,7 @@ def factorize(
     if variant == "la":
         if depth < 1:
             raise ValueError(f"look-ahead depth must be >= 1, got {depth}")
-        return _run_la(ops, work, b, depth, be, panel_fn)
+        return _run_la(ops, work, b, depth, be, panel_fn, fused_pu)
     raise ValueError(
         f"unknown scheduling variant {variant!r}; expected mtb/rtm/la")
 
@@ -152,15 +162,18 @@ def _run_blocked(ops: StepOps, a, b, backend: Backend, panel_fn,
     return ops.finalize(state)
 
 
-def _run_la(ops: StepOps, a, b, depth, backend: Backend, panel_fn):
+def _run_la(ops: StepOps, a, b, depth, backend: Backend, panel_fn,
+            fused_pu=None):
     """LA(depth=d): PF(k+1) right after the narrow update of its columns,
-    ahead of the bulk TU_k^R; d panels in flight (Listing 5)."""
+    ahead of the bulk TU_k^R; d panels in flight (Listing 5).  With
+    ``fused_pu`` (LA_MB) that update and PF(k+1) are one fused call."""
     tr = _obs.active()
     n = a.shape[1]
     state = ops.init(a)
     steps = list(panel_steps(n, b))
     if not steps:
         return ops.finalize(state)
+    fused = fused_pu is not None and ops.pu is not None
 
     # PF(0) runs before the pipelined loop (Listing 5 prologue).
     state, ctx = _call(tr, "PF", "PF(0)",
@@ -179,11 +192,19 @@ def _run_la(ops: StepOps, a, b, depth, backend: Backend, panel_fn):
             break
 
         # PU chain: narrow updates of the next `dd` panels' columns;
-        # PF(i+1) fires right after the first one.
+        # PF(i+1) fires right after the first one (fused with it: LA_MB).
         dd = min(depth, len(steps) - 1 - i)
         nctx = _MISSING
         for j in range(1, dd + 1):
             stj = steps[i + j]
+            if j == 1 and fused:
+                # one fused kernel does TU^L + PF: a single PU span
+                state, nctx = _call(
+                    tr, "PU", f"PU+PF({i}->{i + 1})",
+                    lambda: ops.pu(state, ctx, st, stj, backend, fused_pu),
+                    step=i, it=i, depth=1, fused=True,
+                    cols=(stj.k, stj.k_next))
+                continue
             state = _call(
                 tr, "PU", f"PU({i}->{i + j})",
                 lambda: ops.update(state, ctx, st, stj.k, stj.k_next,

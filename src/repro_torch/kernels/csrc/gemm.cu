@@ -21,8 +21,9 @@
 // not depend on which other columns share the call, which is what keeps the
 // look-ahead schedules bitwise equal to the blocked one.  O may alias C
 // (in-place trailing update): each element is read once and written once by
-// the same thread.
-#include "common.cuh"
+// the same thread.  The accumulator step is gemm_step of dense.cuh, which
+// the fused panel updates (fused_pu.cu) share.
+#include "dense.cuh"
 
 template <typename T, int BM, int BN, int BK, int TM, int TN>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
@@ -73,7 +74,7 @@ gemm_kernel(int64_t M, int64_t N, int64_t K, T alpha,
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j) acc[i][j] = gemm_step(acc[i][j], a[i], b[j]);
       }
     }
     __syncthreads();

@@ -8,10 +8,13 @@ The port of :mod:`repro.kernels.ops`'s ``PALLAS_BACKEND``:
   the trailing update, which the reference's backend never sent to its
   fused kernel;
 * ``trsm``   → the TRSM kernel for left, non-transposed solves, lower or
-  upper; every other case goes to the library solve, as the reference
-  sends it to ``trsm_jnp``;
+  upper, and for the right, lower, transposed solve of the Cholesky panel;
+  every other case goes to the library solve, as the reference sends it
+  to ``trsm_jnp``;
 * ``panel_fns={"lu": lu_panel}`` → the GETF2 panel kernel for every
   scheduling variant;
+* ``fused_pu`` = :data:`FUSED_PU` → the fused panel-update kernels of
+  ``la_mb`` for LU and Cholesky;
 * ``lu_solve_small`` → the fused small solve, taken by
   :func:`repro_torch.solve.triangular.lu_solve_packed`.
 
@@ -23,16 +26,20 @@ from __future__ import annotations
 
 from repro_torch.core.backend import Backend, trsm_torch
 from repro_torch.kernels import blis_gemm as _bg
+from repro_torch.kernels import fused_panel_update as _fpu
 from repro_torch.kernels import panel_lu as _plu
 from repro_torch.kernels import trsm as _tr
 
-__all__ = ["CUDA_BACKEND", "PANEL_KERNELS", "KERNELS", "SMALL_SOLVE_MAX_N",
-           "gemm", "update", "trsm", "lu_panel", "lu_solve_small",
-           "launches", "reset_launches"]
+__all__ = ["CUDA_BACKEND", "PANEL_KERNELS", "FUSED_PU", "KERNELS",
+           "SMALL_SOLVE_MAX_N", "gemm", "update", "trsm", "lu_panel",
+           "lu_solve_small", "fused_lu_panel_update",
+           "fused_cholesky_panel_update", "launches", "reset_launches"]
 
 gemm = _bg.gemm
 lu_panel = _plu.lu_panel
 lu_solve_small = _tr.lu_solve_small
+fused_lu_panel_update = _fpu.fused_lu_panel_update
+fused_cholesky_panel_update = _fpu.fused_cholesky_panel_update
 SMALL_SOLVE_MAX_N = _tr.MAX_ROWS
 
 
@@ -43,18 +50,29 @@ def update(c, a, b):
 
 def trsm(t, b, *, side="left", lower=True, trans=False, unit_diagonal=False,
          out=None):
-    """Backend TRSM: the kernel for left non-transposed solves."""
+    """Backend TRSM: the kernels for left non-transposed solves and for
+    right, lower, transposed ones."""
     if side == "left" and not trans:
         return _tr.trsm(t, b, lower=lower, unit_diagonal=unit_diagonal,
                         out=out)
+    if side == "right" and lower and trans:
+        return _tr.trsm_right_lower_t(t, b, unit_diagonal=unit_diagonal,
+                                      out=out)
     return trsm_torch(t, b, side=side, lower=lower, trans=trans,
                       unit_diagonal=unit_diagonal, out=out)
 
 
 PANEL_KERNELS = {"lu": lu_panel}
 
+#: The fused panel updates that ``get_variant(dmf, "la_mb")`` plugs in; the
+#: engine fuses PU(k+1) and issues deeper narrow updates as regular ones.
+FUSED_PU = {
+    "lu": fused_lu_panel_update,
+    "cholesky": fused_cholesky_panel_update,
+}
+
 CUDA_BACKEND = Backend(name="cuda", gemm=gemm, trsm=trsm, update=update,
-                       panel_fns=PANEL_KERNELS, fused_pu=None)
+                       panel_fns=PANEL_KERNELS, fused_pu=FUSED_PU)
 
 #: Every kernel wrapper of the backend, by the name its launch count goes
 #: under (``gemm`` and ``update`` share the GEMM kernel's count).
@@ -63,6 +81,9 @@ KERNELS = {
     "trsm": _tr.trsm,
     "lu_panel": _plu.lu_panel,
     "lu_solve_small": _tr.lu_solve_small,
+    "trsm_right_lower_t": _tr.trsm_right_lower_t,
+    "fused_lu_panel_update": _fpu.fused_lu_panel_update,
+    "fused_cholesky_panel_update": _fpu.fused_cholesky_panel_update,
 }
 
 

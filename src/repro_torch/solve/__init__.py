@@ -1,6 +1,7 @@
-"""LAPACK-style solve layer of the port: ``lu_factor``, ``gesv`` and
-:class:`LUFactors`."""
-from repro_torch.solve.drivers import gesv, lu_factor
-from repro_torch.solve.factors import LUFactors
+"""LAPACK-style solve layer of the port: ``lu_factor``, ``gesv``,
+``cholesky_factor``, ``posv`` and their factor objects."""
+from repro_torch.solve.drivers import cholesky_factor, gesv, lu_factor, posv
+from repro_torch.solve.factors import CholeskyFactors, LUFactors
 
-__all__ = ["gesv", "lu_factor", "LUFactors"]
+__all__ = ["gesv", "lu_factor", "posv", "cholesky_factor", "LUFactors",
+           "CholeskyFactors"]

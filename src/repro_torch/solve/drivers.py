@@ -1,7 +1,8 @@
-"""LAPACK-style drivers built on the DMF layer: ``lu_factor`` and ``gesv``.
+"""LAPACK-style drivers built on the DMF layer: ``lu_factor``, ``gesv``,
+``cholesky_factor`` and ``posv``.
 
-The port of :mod:`repro.solve.drivers` for LU.  Both take ``variant=``
-(``mtb``/``rtm``/``la``/``la<d>``, resolved by
+The port of :mod:`repro.solve.drivers` for LU and Cholesky.  All take
+``variant=`` (``mtb``/``rtm``/``la``/``la<d>``/``la_mb``, resolved by
 :func:`repro_torch.core.lookahead.get_variant`), ``depth=``, ``backend=``
 (``"cuda"`` — the hand-written kernels, the default — or ``"torch"`` — the
 library ops, or a :class:`~repro_torch.core.backend.Backend`) and
@@ -17,9 +18,9 @@ from repro_torch.core.backend import resolve_backend
 from repro_torch.core.blocking import BlockSpec, normalize_block
 from repro_torch.core.lookahead import deepen, get_variant
 from repro_torch.obs import tracer as _obs
-from repro_torch.solve.factors import LUFactors
+from repro_torch.solve.factors import CholeskyFactors, LUFactors
 
-__all__ = ["lu_factor", "gesv"]
+__all__ = ["lu_factor", "gesv", "cholesky_factor", "posv"]
 
 
 def _traced(fn):
@@ -61,3 +62,22 @@ def gesv(a, b, block: BlockSpec = 128, *, variant: str = "la",
     """Solve ``A·X = B`` for general square A (LU with partial pivoting)."""
     return lu_factor(a, block, variant=variant, depth=depth, backend=backend,
                      device=device).solve(b)
+
+
+@_traced
+def cholesky_factor(a, block: BlockSpec = 128, *, variant: str = "la",
+                    depth: int = 1, backend="cuda",
+                    device=None) -> CholeskyFactors:
+    """Factor ``A = L·Lᵀ`` for symmetric positive-definite A (Cholesky)."""
+    be = resolve_backend(backend)
+    l = get_variant("cholesky", _deepen(variant, depth))(
+        a, block, backend=be, device=device)
+    return CholeskyFactors(l=l, block=normalize_block(block), backend=be)
+
+
+@_traced
+def posv(a, b, block: BlockSpec = 128, *, variant: str = "la",
+         depth: int = 1, backend="cuda", device=None):
+    """Solve ``A·X = B`` for symmetric positive-definite A (Cholesky)."""
+    return cholesky_factor(a, block, variant=variant, depth=depth,
+                           backend=backend, device=device).solve(b)

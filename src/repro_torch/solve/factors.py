@@ -1,16 +1,18 @@
 """Factorization-result objects — factor once, solve many.
 
-The port of :class:`repro.solve.factors.LUFactors`: the packed GETRF
+The port of :class:`repro.solve.factors.LUFactors` and
+:class:`~repro.solve.factors.CholeskyFactors`: the packed GETRF / POTRF
 output with the block size and backend it was built with, and the
 operations LAPACK derives from it (``solve``, transposed ``solve``,
-``logdet``).
+``logdet``, ``inverse``).
 
 Carrying a factored system across the two packages: this system has no
 weights, so what moves between the reference and the port is a factored
 matrix.  :meth:`LUFactors.from_numpy` takes the reference's ``lu`` and
 ``ipiv`` arrays (as NumPy) and recomputes ``perm``; :meth:`LUFactors.to_numpy`
 gives back ``(lu, ipiv, perm)``, which the reference's
-``LUFactors.from_packed(lu, ipiv)`` accepts.  So a system factored by one
+``LUFactors.from_packed(lu, ipiv)`` accepts.  :class:`CholeskyFactors`
+carries its lower factor ``l`` the same way.  So a system factored by one
 package can be solved by the other.
 """
 from __future__ import annotations
@@ -27,7 +29,19 @@ from repro_torch.core.lu import permutation_from_pivots
 from repro_torch.device import resolve_device, working_copy
 from repro_torch.solve.triangular import lu_solve_packed, trsm_blocked
 
-__all__ = ["LUFactors"]
+__all__ = ["LUFactors", "CholeskyFactors"]
+
+
+def _rhs(b, like: torch.Tensor, n: int) -> tuple[torch.Tensor, bool]:
+    """``b`` as a matrix on ``like``'s device and dtype, and whether it was
+    a vector."""
+    b = torch.as_tensor(b).to(device=like.device, dtype=like.dtype)
+    was_vec = b.dim() == 1
+    if was_vec:
+        b = b[:, None]
+    if b.shape[0] != n:
+        raise ValueError(f"rhs rows {b.shape[0]} != system size {n}")
+    return b, was_vec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,12 +89,7 @@ class LUFactors:
     def solve(self, b, *, trans: bool = False) -> torch.Tensor:
         """Solve ``A·X = B`` (or ``Aᵀ·X = B``); ``b`` may be a vector, a
         matrix or a NumPy array, and is not modified."""
-        b = torch.as_tensor(b).to(device=self.lu.device, dtype=self.lu.dtype)
-        was_vec = b.dim() == 1
-        if was_vec:
-            b = b[:, None]
-        if b.shape[0] != self.n:
-            raise ValueError(f"rhs rows {b.shape[0]} != system size {self.n}")
+        b, was_vec = _rhs(b, self.lu, self.n)
         if not trans:
             # A = Pᵀ·L·U  ⇒  L·U·X = P·B
             x = lu_solve_packed(self.lu, b[self.perm], block=self.block,
@@ -103,3 +112,55 @@ class LUFactors:
             self.ipiv.shape[0], device=self.ipiv.device)).sum())
         sign = (-1.0 if swaps % 2 else 1.0) * torch.prod(torch.sign(d))
         return sign, torch.sum(torch.log(torch.abs(d)))
+
+    def inverse(self) -> torch.Tensor:
+        """``A⁻¹`` via n simultaneous solves (GETRI semantics)."""
+        return self.solve(torch.eye(self.n, dtype=self.lu.dtype,
+                                    device=self.lu.device))
+
+
+@dataclasses.dataclass(frozen=True)
+class CholeskyFactors:
+    """POTRF output: ``A = L·Lᵀ`` with L lower triangular."""
+
+    l: torch.Tensor
+    backend: Backend
+    block: BlockSpec = 128
+
+    @classmethod
+    def from_numpy(cls, l, *, block: BlockSpec = 128, device=None,
+                   backend: Union[str, Backend] = "cuda") -> "CholeskyFactors":
+        """Factors from a NumPy array (e.g. the reference's ``l``), on
+        ``device`` (None = the GPU)."""
+        return cls(l=working_copy(l, resolve_device(device)), block=block,
+                   backend=resolve_backend(backend))
+
+    def to_numpy(self) -> np.ndarray:
+        """``l`` as a NumPy array."""
+        return self.l.cpu().numpy()
+
+    @property
+    def n(self) -> int:
+        return self.l.shape[0]
+
+    def solve(self, b, *, trans: bool = False) -> torch.Tensor:
+        """Solve ``A·X = B`` (A is symmetric, so ``trans`` changes nothing):
+        ``L·y = B``, then ``Lᵀ·X = y``."""
+        del trans
+        b, was_vec = _rhs(b, self.l, self.n)
+        y = trsm_blocked(self.l, b, lower=True, block=self.block,
+                         backend=self.backend)
+        x = trsm_blocked(self.l, y, lower=True, trans=True, block=self.block,
+                         backend=self.backend)
+        return x[:, 0] if was_vec else x
+
+    def logdet(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(sign, log det A)``: sign 1, ``2·Σ log L[i, i]``."""
+        d = torch.diagonal(self.l)
+        return torch.ones((), dtype=d.dtype, device=d.device), \
+            2.0 * torch.sum(torch.log(d))
+
+    def inverse(self) -> torch.Tensor:
+        """``A⁻¹`` via n simultaneous solves."""
+        return self.solve(torch.eye(self.n, dtype=self.l.dtype,
+                                    device=self.l.device))

@@ -16,9 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import lookahead, lu
+from repro_torch.core import cholesky, lookahead, lu
 from repro_torch.kernels import _build
-from repro_torch.solve import LUFactors, gesv, lu_factor
+from repro_torch.solve import (CholeskyFactors, LUFactors, cholesky_factor,
+                               gesv, lu_factor, posv)
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 PORT = SRC / "repro_torch"
@@ -54,7 +55,9 @@ def test_no_source_file_imports_jax_or_the_reference():
 
 
 @pytest.mark.parametrize("entry", ["lu_factor", "gesv", "variant",
-                                   "from_numpy", "lu_blocked"])
+                                   "from_numpy", "lu_blocked",
+                                   "cholesky_factor", "posv", "la_mb",
+                                   "chol_from_numpy", "cholesky_blocked"])
 def test_entry_points_default_to_the_gpu_and_raise_without_one(
         monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -65,22 +68,31 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(
         "variant": lambda: lookahead.get_variant("lu", "la2")(a, 2),
         "from_numpy": lambda: LUFactors.from_numpy(a, np.arange(4), block=2),
         "lu_blocked": lambda: lu.lu_blocked(a, 2, backend="torch"),
+        "cholesky_factor": lambda: cholesky_factor(a, 2),
+        "posv": lambda: posv(a, b, 2),
+        "la_mb": lambda: lookahead.get_variant("cholesky", "la_mb")(a, 2),
+        "chol_from_numpy": lambda: CholeskyFactors.from_numpy(a, block=2),
+        "cholesky_blocked": lambda: cholesky.cholesky_blocked(
+            a, 2, backend="torch"),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
 
 
-def test_explicit_cpu_runs_and_returns_cpu_tensors():
-    x = gesv(np.eye(4) * 2.0, np.ones((4, 1)), 2, device="cpu")
+@pytest.mark.parametrize("driver", [gesv, posv])
+def test_explicit_cpu_runs_and_returns_cpu_tensors(driver):
+    x = driver(np.eye(4) * 4.0, np.ones((4, 1)), 2, device="cpu")
     assert x.device.type == "cpu"
-    np.testing.assert_allclose(x.numpy(), np.full((4, 1), 0.5))
+    np.testing.assert_allclose(x.numpy(), np.full((4, 1), 0.25))
 
 
 def test_every_kernel_source_is_built_and_counted():
-    assert set(_build.sources()) == {"gemm", "trsm", "panel_lu"}
+    assert set(_build.sources()) == {"gemm", "trsm", "panel_lu", "fused_pu"}
     from repro_torch.kernels import ops
     assert set(ops.KERNELS) == {"gemm_accum", "trsm", "lu_panel",
-                                "lu_solve_small"}
+                                "lu_solve_small", "trsm_right_lower_t",
+                                "fused_lu_panel_update",
+                                "fused_cholesky_panel_update"}
 
 
 def test_ptxas_summary_parses_a_verbose_log():

@@ -4,8 +4,10 @@ Phase 3 of ``chip_smoke.py`` at small shapes: every kernel is built from
 ``src/repro_torch/kernels/csrc`` and compared with its plain version on the
 card.  The kernel and its plain version sum the same terms in the same
 order, so they are held to 4·max(k,8)·eps relative, k being the number of
-terms summed per element (the panel bitwise); whole solves keep the
-reference's 200·max(m,n,8)·eps.  Marked ``cuda``;
+terms summed per element (the panel bitwise; the fused panel updates
+bitwise against the kernels they replace);
+whole solves keep the reference's 200·max(m,n,8)·eps, and every schedule
+of LU and Cholesky gives bitwise the factors of ``mtb``.  Marked ``cuda``;
 each test skips (inside the ``card`` fixture, never at import or
 collection) when no GPU is present.  On a machine with one:
 
@@ -15,8 +17,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.cholesky import cholesky_panel
 from repro_torch.kernels import blis_gemm, ops, panel_lu, trsm
-from repro_torch.solve import gesv, lu_factor
+from repro_torch.kernels import fused_panel_update as fpu
+from repro_torch.solve import cholesky_factor, gesv, lu_factor, posv
 
 pytestmark = pytest.mark.cuda
 
@@ -130,6 +134,25 @@ def test_wrappers_raise_on_bad_operands(card):
                                                           device=card))
     with pytest.raises(ValueError, match="not supported"):
         panel_lu.lu_panel(a.half())
+    with pytest.raises(ValueError, match="at most 256"):
+        trsm.trsm_right_lower_t(torch.eye(300, device=card),
+                                torch.ones(2, 300, device=card))
+    with pytest.raises(ValueError, match="unit stride"):
+        trsm.trsm_right_lower_t(a, a.mT)
+    with pytest.raises(ValueError, match="at most 256"):
+        fpu.fused_lu_panel_update(torch.eye(300, device=card, dtype=a.dtype),
+                                  torch.ones(40, 300, device=card,
+                                             dtype=a.dtype),
+                                  torch.ones(300, 8, device=card,
+                                             dtype=a.dtype),
+                                  torch.ones(40, 8, device=card, dtype=a.dtype))
+    big = torch.ones(400, 200, device=card, dtype=a.dtype)
+    with pytest.raises(ValueError, match="shared memory"):
+        fpu.fused_cholesky_panel_update(big[:200, :16], big[:, :16], big)
+    with pytest.raises(ValueError, match="fewer than"):
+        fpu.fused_cholesky_panel_update(a[:8, :4], a[:5, :4], a[:5, :8])
+    with pytest.raises(ValueError, match="dtype"):
+        fpu.fused_cholesky_panel_update(a[:8, :4], a[:, :4].float(), a[:, :8])
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -139,7 +162,7 @@ def test_gesv_variants_bitwise_on_the_card(card, dtype):
     rhs = _randn((n, 3), dtype, card, 15)
     ops.reset_launches()
     base = lu_factor(a, b, variant="mtb")
-    for variant in ("rtm", "la", "la2", "la3"):
+    for variant in ("rtm", "la", "la2", "la3", "la_mb", "la_mb2"):
         fac = lu_factor(a, b, variant=variant)
         assert torch.equal(fac.lu, base.lu), variant
         assert torch.equal(fac.ipiv, base.ipiv), variant
@@ -147,4 +170,125 @@ def test_gesv_variants_bitwise_on_the_card(card, dtype):
     assert _rel(a @ x, rhs) < _tol(dtype, n, n)
     x1 = gesv(a[:32, :32], rhs[:32], 32)
     assert _rel(a[:32, :32] @ x1, rhs[:32]) < _tol(dtype, 32, 32)
-    assert all(count > 0 for count in ops.launches().values())
+    counts = ops.launches()
+    assert all(counts[k] > 0 for k in ("gemm_accum", "trsm", "lu_panel",
+                                       "lu_solve_small",
+                                       "fused_lu_panel_update"))
+
+
+def _spd(n, dtype, device, seed):
+    g = _randn((n, n), torch.float64, device, seed)
+    return (g @ g.mT / n + torch.eye(n, dtype=torch.float64,
+                                     device=device)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_posv_variants_bitwise_on_the_card(card, dtype):
+    n, b = 300, 32
+    a = _spd(n, dtype, card, 16)
+    rhs = _randn((n, 3), dtype, card, 17)
+    ops.reset_launches()
+    base = cholesky_factor(a, b, variant="mtb")
+    for variant in ("rtm", "la", "la2", "la3", "la_mb", "la_mb2"):
+        fac = cholesky_factor(a, b, variant=variant)
+        assert torch.equal(fac.l, base.l), variant
+    assert float(torch.triu(base.l, 1).abs().max()) == 0.0
+    x = posv(a, rhs, b, variant="la_mb")
+    assert _rel(a @ x, rhs) < _tol(dtype, n, n)
+    counts = ops.launches()
+    assert all(counts[k] > 0 for k in ("gemm_accum", "trsm",
+                                       "trsm_right_lower_t",
+                                       "fused_cholesky_panel_update"))
+
+
+def _lu_operands(m, b, bn, dtype, device, seed):
+    l11 = torch.linalg.lu_factor(
+        _randn((b, b), dtype, device, seed)).LU.contiguous()
+    return (l11, _randn((m, b), dtype, device, seed + 1),
+            _randn((b, bn), dtype, device, seed + 2),
+            _randn((m, bn), dtype, device, seed + 3))
+
+
+def _chol_operands(m, b, bn, dtype, device, seed):
+    """lrow = l21[:bn], and a panel whose updated top block is SPD."""
+    l21 = 0.1 * _randn((m, b), dtype, device, seed)
+    panel = 0.1 * _randn((m, bn), dtype, device, seed + 1)
+    panel[:bn] = l21[:bn] @ l21[:bn].mT + _spd(bn, dtype, device, seed + 2)
+    return l21[:bn], l21, panel
+
+
+def _composed_lu(l11, l21, a1l, a2l):
+    """The kernels the fused LU update replaces: TRSM, GEMM-accumulate,
+    GETF2."""
+    ops.trsm(l11, a1l, lower=True, unit_diagonal=True, out=a1l)
+    ops.update(a2l, l21, a1l)
+    return a1l, a2l, ops.lu_panel(a2l)
+
+
+def _composed_cholesky(lrow, l21, panel):
+    """The kernels the fused Cholesky update replaces: GEMM-accumulate, then
+    the Cholesky panel (PyTorch ops on the card and the right TRSM)."""
+    ops.update(panel, l21, lrow.mT.contiguous())
+    return cholesky_panel(panel, lrow.shape[0], "cuda")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [8064, 200, 129])
+def test_fused_lu_matches_composed_kernels_bitwise_and_plain(card, dtype, m):
+    # Bitwise against the kernels it replaces (what keeps la_mb equal to
+    # mtb); against the plain version, whose TRSM and GEMM round each product
+    # separately where the kernels use FMA, within 4·(b+bn)·eps, pivots equal.
+    l11, l21, a1l, a2l = _lu_operands(m, 128, 128, dtype, card, 18)
+    composed = _composed_lu(l11, l21, a1l.clone(), a2l.clone())
+    plain = fpu.fused_lu_panel_update_plain(l11, l21, a1l.clone(), a2l.clone())
+    before = fpu.fused_lu_panel_update.launches
+    u12, packed, piv = fpu.fused_lu_panel_update(l11, l21, a1l, a2l)
+    assert fpu.fused_lu_panel_update.launches == before + 1
+    assert u12.data_ptr() == a1l.data_ptr() and packed.data_ptr() == a2l.data_ptr()
+    assert torch.equal(piv, composed[2]) and torch.equal(piv, plain[2])
+    assert torch.equal(u12, composed[0]) and torch.equal(packed, composed[1])
+    assert _rel(u12, plain[0]) < _kernel_tol(dtype, 128)
+    assert _rel(packed, plain[1]) < _kernel_tol(dtype, 256)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m", [8064, 200, 129])
+def test_fused_cholesky_matches_composed_kernels_bitwise_and_plain(
+        card, dtype, m):
+    lrow, l21, panel = _chol_operands(m, 128, 128, dtype, card, 19)
+    composed = _composed_cholesky(lrow, l21, panel.clone())
+    plain = fpu.fused_cholesky_panel_update_plain(lrow, l21, panel.clone())
+    before = fpu.fused_cholesky_panel_update.launches
+    got = fpu.fused_cholesky_panel_update(lrow, l21, panel)
+    assert fpu.fused_cholesky_panel_update.launches == before + 1
+    assert got.data_ptr() == panel.data_ptr()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, composed)
+    assert _rel(got, plain) < _kernel_tol(dtype, 256)
+
+
+def test_fused_updates_in_place_on_strided_views(card):
+    # the engine's operands: views of one matrix, ragged next panel
+    a = _randn((300, 300), torch.float64, card, 20)
+    k, bk, bn = 64, 32, 20
+    kn = k + bk
+    ref = a.clone()
+    want = _composed_lu(ref[k:kn, k:kn], ref[kn:, k:kn],
+                        ref[k:kn, kn:kn + bn], ref[kn:, kn:kn + bn])
+    got = fpu.fused_lu_panel_update(a[k:kn, k:kn], a[kn:, k:kn],
+                                    a[k:kn, kn:kn + bn], a[kn:, kn:kn + bn])
+    assert torch.equal(got[2], want[2]) and torch.equal(a, ref)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,bn", [(8064, 128), (33, 16), (1, 1), (70, 256)])
+@pytest.mark.parametrize("unit", [False, True])
+def test_trsm_right_matches_plain(card, dtype, m, bn, unit):
+    l = torch.linalg.cholesky(_spd(bn, dtype, card, 21)).contiguous()
+    rhs = _randn((m, bn), dtype, card, 22)
+    ref = trsm.trsm_right_lower_t_plain(l, rhs, unit_diagonal=unit)
+    before = trsm.trsm_right_lower_t.launches
+    got = trsm.trsm_right_lower_t(l, rhs, unit_diagonal=unit, out=rhs)
+    assert trsm.trsm_right_lower_t.launches == before + 1
+    assert got.data_ptr() == rhs.data_ptr()
+    assert _rel(got, ref) < _kernel_tol(dtype, bn)

@@ -150,7 +150,9 @@ def test_update_and_trsm_write_in_place():
 
 
 def test_backend_trsm_library_cases_match_trsm_jnp():
-    # transposed and right-side solves go to the library, as in the reference
+    # transposed and right-side solves go to the library, as in the
+    # reference — except X·Lᵀ = B (right, lower, transposed), which goes to
+    # the right TRSM kernel's wrapper (here its plain version)
     l, u = _lu_factors(10, 18, np.float64)
     b = _rand((10, 10), 19, np.float64)
     for t, lower in ((l, True), (u, False)):
