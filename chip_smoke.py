@@ -7,12 +7,17 @@
 2. build:  the CUDA kernels from ``src/repro_torch/kernels/csrc`` with
    nvcc, and what ``-Xptxas -v`` says of each (registers, smem, spills).
 3. kernels: every kernel of the main paths against its plain PyTorch
-   version on the card, at the main path's shapes (n = 8192, b = 128, in
-   float64 and float32), with its time, the plain version's, one library
-   call's (or, for the fused panel updates, which no one library call
-   computes, the composed kernels' they replace) and the bound (bytes or
-   operations) for the same work.  The fused panel updates are held
-   bitwise to the composed kernels, pivots included.
+   version on the card, at the main path's shapes (n = 8192, b = 128 for
+   LU and Cholesky; the 16384 x 128 QR panel, and the first global QRCP
+   block, 16384 x 4096 with 128 steps, and a 16384 x 128 window; the GEMM
+   also at the gels paths' products, the 16384-deep V^T C and V^T B and
+   the QRCP update; float64 and float32), with its time, the plain
+   version's, one library call's (or, for the fused panel updates, which
+   no one library call computes, the composed kernels' they replace) and
+   the bound (bytes or operations) for the same work.  The fused panel updates are held
+   bitwise to the composed kernels, pivots included; the QR and QRCP
+   panels within 4·k·eps of their plain versions, k the longest chain of
+   terms the kernel sums for one element, QRCP pivots equal.
 4. main path: ``gesv`` (LU with partial pivoting, then the solves) through
    the port's entry points, under ``mtb``/``la``/``la2``/``la_mb`` at
    n = 8192 and ``rtm`` at n = 2048, plus n = 128 with block 128 (the fused
@@ -24,6 +29,17 @@
    n = 8192 and ``rtm`` at n = 2048: the same checks and times, against
    ``torch.linalg.cholesky`` + ``torch.cholesky_solve``, and the time of
    one PyTorch-op ``cholesky_unblocked`` of a 128 x 128 block.
+6. ``gels`` (Householder QR, then the least-squares solve), m = 16384,
+   n = 4096, 16 right-hand sides, under ``mtb``/``la``/``la2``/``la_mb``,
+   ``rtm`` at 4096 x 1024 and a wide 1024 x 2048 factor: LAPACK's
+   least-squares ratio, factors bitwise equal to ``mtb``'s, wall times
+   against ``torch.geqrf`` and ``torch.linalg.lstsq`` (cuSOLVER), the
+   traced PF/TU shares under ``la``.
+7. ``gels(pivot=True)`` on the same shape: global QRCP (``mtb``, ``rtm``
+   at 4096 x 1024) and windowed ``qrcp_local`` (``mtb``/``la``/``la2``):
+   ``jpvt`` a permutation, ``|r_jj|`` non-increasing (within each window
+   for ``local``), the least-squares ratio, ``local`` look-ahead bitwise
+   equal to ``local`` ``mtb``, and on a rank-n/2 input the rank.
 
 Launch counts are set to 0 just before each path and read just after it;
 each kernel of a path must have launched in it.
@@ -44,6 +60,9 @@ import time
 from pathlib import Path
 
 N, BLOCK, NRHS = 8192, 128, 16   # the main path
+QR_M, QR_N = 16384, 4096         # the gels paths: a tall 4:1 system
+QR_RTM = (4096, 1024)            # rtm's launches grow as panels x tiles
+QR_WIDE = (1024, 2048)           # wide QR: the row-exhaustion stop
 RTM_N = 2048                     # rtm's per-tile launches grow as (n/b)^3
 SMALL_N = 128                    # one panel: the fused small solve
 SEED = 0
@@ -76,10 +95,13 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core.backend import no_tf32
     from repro_torch.core.cholesky import cholesky_panel, cholesky_unblocked
-    from repro_torch.kernels import _build, blis_gemm, ops, panel_lu, trsm
+    from repro_torch.core import qr
+    from repro_torch.kernels import (_build, blis_gemm, ops, panel_lu,
+                                     panel_qr, panel_qrcp, trsm)
     from repro_torch.kernels import fused_panel_update as fpu
     from repro_torch.obs import tracer
-    from repro_torch.solve import cholesky_factor, gesv, lu_factor
+    from repro_torch.solve import (cholesky_factor, geqp3, gesv, lu_factor,
+                                   qr_factor)
 
     dev = torch.device("cuda")
 
@@ -102,10 +124,13 @@ def main() -> int:
         return statistics.median(out)
 
     def tolerance(dtype, k) -> float:
-        """Kernel vs plain version: both sum ``k`` terms per element in the
-        same order and differ by FMA rounding only (measured: under 16 eps
-        relative).  A kernel that dropped one 8-wide slice of K or one row
-        of a triangle would be off by a few per cent."""
+        """Kernel vs plain version, relative: 4·k·eps for ``k`` terms summed
+        in turn per element.  The GEMM, TRSM and fused kernels sum them in
+        the plain version's order and differ by FMA rounding only
+        (measured: under 16 eps); the QR panels regroup (see there).  A
+        kernel that dropped one 8-wide slice of K or one row of a triangle
+        would be off by a few per cent; one that summed in half precision
+        by about 2**-11 relative, or more."""
         return 4.0 * k * torch.finfo(dtype).eps
 
     def compare(x, ref):
@@ -150,36 +175,65 @@ def main() -> int:
         size = torch.finfo(dtype).bits // 8
         res = {}
 
-        # GEMM-accumulate: the first trailing update, 8064x128 . 128x8064
+        def gemm_row(c, a, b):
+            """The GEMM kernel, ``C − A·B`` (``A·B`` where ``c`` is None),
+            against its plain version, one cuBLAS call and the bound."""
+            mm, k = a.shape
+            nn = b.shape[1]
+            out = torch.empty(mm, nn, dtype=dtype, device=dev)
+            lib_out = torch.empty_like(out)
+            if c is None:
+                def run():
+                    return blis_gemm.gemm(a, b, out=out)
+
+                def plain():
+                    return blis_gemm.gemm_accum_plain(None, a, b, alpha=1.0,
+                                                      beta=0.0)
+
+                def lib():
+                    return torch.matmul(a, b, out=lib_out)
+            else:
+                def run():
+                    return blis_gemm.gemm_accum(c, a, b, out=out)
+
+                def plain():
+                    return blis_gemm.gemm_accum_plain(c, a, b)
+
+                def lib():
+                    return torch.addmm(c, a, b, alpha=-1, out=lib_out)
+            got = run()
+            sync()
+            err, mx = compare(got, plain())
+            return dict(
+                shape=[mm, k, nn], rel_err=err, max_abs_err=mx,
+                tol=tolerance(dtype, k), ms=time_ms(run, 10),
+                plain_ms=time_ms(plain, 3 if k <= BLOCK else 1),
+                library_ms=time_ms(lib, 10),
+                bound=bound(2.0 * mm * nn * k,
+                            (mm * k + k * nn
+                             + (1 if c is None else 2) * mm * nn) * size))
+
+        # GEMM-accumulate: the first trailing update, 8064x128 . 128x8064;
+        # the same kernel with beta = 0 (plain GEMM) at the same shape
         c, a, b = randn(m, m), randn(m, BLOCK), randn(BLOCK, m)
-        out, lib_out = torch.empty_like(c), torch.empty_like(c)
-        got = blis_gemm.gemm_accum(c, a, b, out=out)
-        sync()
-        err, mx = compare(got, blis_gemm.gemm_accum_plain(c, a, b))
-        res["gemm_accum"] = dict(
-            shape=[m, BLOCK, m], rel_err=err, max_abs_err=mx,
-            tol=tolerance(dtype, BLOCK),
-            ms=time_ms(lambda: blis_gemm.gemm_accum(c, a, b, out=out), 10),
-            plain_ms=time_ms(lambda: blis_gemm.gemm_accum_plain(c, a, b), 3),
-            library_ms=time_ms(
-                lambda: torch.addmm(c, a, b, alpha=-1, out=lib_out), 10),
-            bound=bound(2.0 * m * m * BLOCK,
-                        (2 * m * BLOCK + 2 * m * m) * size))
-        # the same kernel with beta = 0: plain GEMM (not on the LU path)
-        got = blis_gemm.gemm(a, b, out=out)
-        sync()
-        err, mx = compare(got, blis_gemm.gemm_accum_plain(
-            None, a, b, alpha=1.0, beta=0.0))
-        res["gemm"] = dict(
-            shape=[m, BLOCK, m], rel_err=err, max_abs_err=mx,
-            tol=tolerance(dtype, BLOCK),
-            ms=time_ms(lambda: blis_gemm.gemm(a, b, out=out), 10),
-            plain_ms=time_ms(lambda: blis_gemm.gemm_accum_plain(
-                None, a, b, alpha=1.0, beta=0.0), 3),
-            library_ms=time_ms(lambda: torch.matmul(a, b, out=lib_out), 10),
-            bound=bound(2.0 * m * m * BLOCK,
-                        (2 * m * BLOCK + m * m) * size))
-        del c, a, b, out, lib_out, got
+        res["gemm_accum"] = gemm_row(c, a, b)
+        res["gemm"] = gemm_row(None, a, b)
+        del c, a, b
+        # the gels paths' first panel (trailing nc = QR_N - BLOCK columns):
+        # the update's beta = 0 V^T C, under la also on the next panel's
+        # BLOCK columns (most of PU), and the solve's V^T B (16 columns),
+        # each summing K = QR_M terms an element; and global QRCP's update
+        # A2 -= V2 F^T (K = BLOCK; QR's C -= V W has the same K and 128
+        # rows more)
+        nc = QR_N - BLOCK
+        vt = randn(BLOCK, QR_M)
+        res["gemm_gels_vtc"] = gemm_row(None, vt, randn(QR_M, nc))
+        res["gemm_gels_vtc_pu"] = gemm_row(None, vt, randn(QR_M, BLOCK))
+        res["gemm_gels_vtb"] = gemm_row(None, vt, randn(QR_M, NRHS))
+        del vt
+        res["gemm_accum_qrcp"] = gemm_row(randn(QR_M - BLOCK, nc),
+                                          randn(QR_M - BLOCK, BLOCK),
+                                          randn(BLOCK, nc))
 
         # TRSM: lower unit (U12 = L11^-1 A12) and upper non-unit, 128 x 8064
         lu_t = torch.linalg.lu_factor(randn(BLOCK, BLOCK)).LU.contiguous()
@@ -218,6 +272,7 @@ def main() -> int:
         err, mx = compare(pk, pp)
         work = torch.empty_like(panel0)
         copy_ms = time_ms(lambda: work.copy_(panel0), 10)
+        lu_lib_ms = time_ms(lambda: torch.linalg.lu_factor(panel0), 10)
         flops = sum((N - j - 1) * (1 + 2 * (BLOCK - j - 1))
                     for j in range(BLOCK))
         res["lu_panel"] = dict(
@@ -228,7 +283,7 @@ def main() -> int:
             plain_ms=time_ms(
                 lambda: panel_lu.lu_panel_plain(work.copy_(panel0)), 3)
             - copy_ms,
-            library_ms=time_ms(lambda: torch.linalg.lu_factor(panel0), 10),
+            library_ms=lu_lib_ms,
             bound=bound(flops, 2 * N * BLOCK * size + 4 * BLOCK))
         del panel0, pk, pp, work
 
@@ -347,6 +402,98 @@ def main() -> int:
             bound=bound(2.0 * SMALL_N * SMALL_N * NRHS,
                         (SMALL_N * SMALL_N + 2 * SMALL_N * NRHS) * size))
 
+        # QR panel (GEQR2 + LARFT) at the gels path's first panel,
+        # 16384 x 128, in place; its LARFT entry on the same V.  The
+        # reductions group differently from the plain version's, so the
+        # bound is relative, 4·k·eps on packed, tau and T, with k the
+        # longest chain of terms the kernel sums in turn for one element:
+        # a block's rows of the cooperative grid (G blocks), then the G
+        # block partials, then up to BLOCK terms of the T recurrence.
+        sfx = _build.SUFFIX[dtype]
+
+        def chain(grid):
+            return -(-QR_M // grid) + grid + BLOCK
+
+        g_qr = panel_qr._grid(f"repro_qr_panel_grid_{sfx}", QR_M, BLOCK)
+        g_larft = panel_qr._grid(f"repro_larft_grid_{sfx}", QR_M, BLOCK)
+        qpanel0 = randn(QR_M, BLOCK)
+        qk, qp = qpanel0.clone(), qpanel0.clone()
+        _, tau_k, t_k = panel_qr.qr_panel(qk)
+        _, tau_p, t_p = panel_qr.qr_panel_plain(qp)
+        sync()
+        errs = {what: compare(x, y)[0] for what, x, y in (
+            ("packed", qk, qp), ("tau", tau_k, tau_p), ("T", t_k, t_p))}
+        work = torch.empty_like(qpanel0)
+        copy_ms = time_ms(lambda: work.copy_(qpanel0), 10)
+        geqr2 = sum(4.0 * (QR_M - j) * (BLOCK - j) for j in range(BLOCK))
+        gram = float(QR_M) * BLOCK * (BLOCK - 1) + BLOCK ** 3 / 3.0
+        res["qr_panel"] = dict(
+            shape=[QR_M, BLOCK], rel_err=max(errs.values()), rel_errs=errs,
+            max_abs_err=compare(qk, qp)[1], grid=g_qr,
+            tol=tolerance(dtype, chain(g_qr)),
+            ms=time_ms(lambda: panel_qr.qr_panel(work.copy_(qpanel0)), 10)
+            - copy_ms,
+            plain_ms=time_ms(
+                lambda: panel_qr.qr_panel_plain(work.copy_(qpanel0)), 2)
+            - copy_ms,
+            library_ms=time_ms(lambda: torch.geqrf(qpanel0), 10),
+            bound=bound(geqr2 + gram, (2 * QR_M * BLOCK + BLOCK * BLOCK
+                                       + BLOCK) * size))
+        v_q = qr.unpack_v(qk, BLOCK)
+        t_l = panel_qr.larft(v_q, tau_k)
+        sync()
+        err, mx = compare(t_l, panel_qr.larft_plain(v_q, tau_k))
+        res["larft"] = dict(
+            shape=[QR_M, BLOCK], rel_err=err, max_abs_err=mx, grid=g_larft,
+            tol=tolerance(dtype, chain(g_larft)),
+            ms=time_ms(lambda: panel_qr.larft(v_q, tau_k), 10),
+            plain_ms=time_ms(lambda: panel_qr.larft_plain(v_q, tau_k), 2),
+            library_ms=None,
+            bound=bound(gram, (QR_M * BLOCK + BLOCK + BLOCK * BLOCK) * size))
+        del qpanel0, qk, qp, work, v_q
+
+        # xLAQPS: the global path's first block (16384 x 4096, 128 steps)
+        # and a qrcp_local window (16384 x 128); pivots equal to the plain
+        # version's, arrays within 4·k·eps, k as for the QR panel (up to
+        # BLOCK terms of the F recurrence).  The bound counts the per-step
+        # pass over the block.  No PyTorch call computes it.
+        g_qrcp = panel_qrcp._grid(sfx, QR_M, BLOCK)
+        qrcp_rows = {}
+        for cols in (QR_N, BLOCK):
+            blk0 = randn(QR_M, cols)
+            bk_, bp_ = blk0.clone(), blk0.clone()
+            got = panel_qrcp.qrcp_panel(bk_, BLOCK)
+            want = panel_qrcp.qrcp_panel_plain(bp_, BLOCK)
+            sync()
+            check(torch.equal(got[4], want[4]),
+                  f"qrcp_panel {dtype} {QR_M}x{cols}: pivots differ from the "
+                  "plain version's")
+            errs = {what: compare(x, y)[0] for what, x, y in zip(
+                ("block", "v", "f", "tau"), got[:4], want[:4])}
+            work = torch.empty_like(blk0)
+            copy_ms = time_ms(lambda: work.copy_(blk0), 5)
+            passes = sum(float(QR_M - j) * cols for j in range(BLOCK))
+            flops = 2.0 * QR_M * cols + sum(
+                2.0 * (QR_M - j) * (cols + 2 * j) + 4.0 * cols * j
+                for j in range(BLOCK))
+            qrcp_rows[cols] = dict(
+                shape=[QR_M, cols, BLOCK], pivots_equal=True,
+                rel_err=max(errs.values()), rel_errs=errs,
+                max_abs_err=compare(got[0], want[0])[1], grid=g_qrcp,
+                tol=tolerance(dtype, chain(g_qrcp)),
+                ms=time_ms(lambda: panel_qrcp.qrcp_panel(work.copy_(blk0),
+                                                         BLOCK), 3) - copy_ms,
+                plain_ms=time_ms(lambda: panel_qrcp.qrcp_panel_plain(
+                    work.copy_(blk0), BLOCK), 1) - copy_ms,
+                library_ms=None,
+                bound=bound(flops, (passes + QR_M * cols + QR_M * BLOCK
+                                    + cols * BLOCK) * size))
+            del blk0, bk_, bp_, got, want, work
+        res["qrcp_panel"] = {**qrcp_rows[QR_N], "window": qrcp_rows[BLOCK]}
+        check(qrcp_rows[BLOCK]["rel_err"] <= qrcp_rows[BLOCK]["tol"],
+              f"qrcp_panel {dtype} window: kernel vs plain rel err "
+              f"{qrcp_rows[BLOCK]['rel_err']}")
+
         for name, r in res.items():
             check(r["rel_err"] <= r["tol"],
                   f"{name} {dtype}: kernel vs plain rel err {r['rel_err']} "
@@ -355,14 +502,14 @@ def main() -> int:
         emit({"phase": "kernels", "dtype": str(dtype), "results": res})
 
     # ---- 4. the main path through the entry points -------------------------
-    def emit_trace(path, variant, dtype, run):
+    def emit_trace(path, variant, dtype, run, n=N):
         """PF/TU/PU/SWAP shares of one traced factor (spans fenced)."""
         with tracer.trace() as tr:
             run()
         cats = ("PF", "TU", "PU", "SWAP")
         total = sum(tr.total(c) for c in cats)
         emit({"phase": f"trace_{variant}", "path": path, "dtype": str(dtype),
-              "n": N, "seconds": {c: tr.total(c) for c in cats},
+              "n": n, "seconds": {c: tr.total(c) for c in cats},
               "shares": {c: tr.total(c) / total for c in cats},
               "fused_spans": sum(1 for sp in tr.spans if sp.meta.get("fused"))})
 
@@ -556,15 +703,225 @@ def main() -> int:
         check(counts_posv[name] > 0, f"kernel {name} was not launched on the "
               "posv path")
     counts = {k: counts[k] + counts_posv[k] for k in counts}
+
+    # ---- 6. gels: Householder QR, then the least-squares solve -------------
+    def ls_ratio(a, x, b, dtype):
+        """LAPACK's least-squares test ratio ‖Aᵀ(b − A·x)‖ /
+        (max(m, n, nrhs)·eps·‖A‖·‖b‖), Frobenius norms, in float64."""
+        a, x, b = a.double(), x.double(), b.double()
+        num = float((a.mT @ (b - a @ x)).norm())
+        return num / (max(*a.shape, b.shape[1]) * torch.finfo(dtype).eps
+                      * float(a.norm()) * float(b.norm()))
+
+    def same(f, g, fields):
+        return all(torch.equal(getattr(f, k), getattr(g, k)) for k in fields)
+
+    qr_flops = 2.0 * QR_M * QR_N ** 2 - 2.0 * QR_N ** 3 / 3.0
+    qr_panels = -(-QR_N // BLOCK)
+    ops.reset_launches()
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+        a = torch.randn(QR_M, QR_N, generator=gen, device=dev, dtype=dtype)
+        b = torch.randn(QR_M, NRHS, generator=gen, device=dev, dtype=dtype)
+        base = None
+        for variant in ("mtb", "la", "la2", "la_mb"):
+            before = panel_qr.qr_panel.launches
+            sync()
+            t0 = time.perf_counter()
+            fac = qr_factor(a, BLOCK, variant=variant)
+            sync()
+            t1 = time.perf_counter()
+            x = fac.solve(b)
+            sync()
+            t2 = time.perf_counter()
+            panels = panel_qr.qr_panel.launches - before
+            check(panels == qr_panels,
+                  f"gels {variant}: {panels} panel launches, expected "
+                  f"{qr_panels}")
+            ratio = ls_ratio(a, x, b, dtype)
+            check(ratio < RESIDUAL_LIMIT, f"gels {variant} {dtype}: "
+                  f"least-squares ratio {ratio}")
+            if base is None:
+                base = fac
+            else:
+                check(same(fac, base, ("packed", "taus")),
+                      f"gels {variant} {dtype}: factors differ from mtb's")
+            emit({"phase": "gels", "dtype": str(dtype), "m": QR_M, "n": QR_N,
+                  "block": BLOCK, "nrhs": NRHS, "variant": variant,
+                  "factor_ms": (t1 - t0) * 1e3, "solve_ms": (t2 - t1) * 1e3,
+                  "factor_gflops": qr_flops / (t1 - t0) / 1e9,
+                  "ls_ratio": ratio, "panel_launches": panels,
+                  "bitwise_equal_to_mtb": True})
+        del base, fac, x
+
+        # the vendor library (cuSOLVER geqrf; lstsq with the gels driver),
+        # each timed after one warm-up call
+        no_tf32()
+        lib = {}
+        for name, call in (("geqrf", lambda: torch.geqrf(a)),
+                           ("lstsq", lambda: torch.linalg.lstsq(a, b))):
+            call()
+            sync()
+            t0 = time.perf_counter()
+            out = call()
+            sync()
+            lib[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        emit({"phase": "gels_library", "dtype": str(dtype), "m": QR_M,
+              "n": QR_N, "call": "torch.geqrf; torch.linalg.lstsq", **lib,
+              "factor_gflops": qr_flops / lib["geqrf_ms"] * 1e-6,
+              "ls_ratio": ls_ratio(a, out.solution, b, dtype)})
+        del out
+
+        emit_trace("gels", "la", dtype,
+                   lambda: qr_factor(a, BLOCK, variant="la"), n=QR_N)
+
+        # rtm at 4096 x 1024 and a wide 1024 x 2048 factor, bitwise vs mtb
+        for (m_, n_), variants in ((QR_RTM, ("rtm",)),
+                                   (QR_WIDE, ("la", "la2", "rtm"))):
+            a2 = a[:m_, :n_] if n_ <= QR_N else torch.randn(
+                m_, n_, generator=gen, device=dev, dtype=dtype)
+            f_mtb = qr_factor(a2, BLOCK, variant="mtb")
+            for variant in variants:
+                sync()
+                t0 = time.perf_counter()
+                f_v = qr_factor(a2, BLOCK, variant=variant)
+                sync()
+                t1 = time.perf_counter()
+                check(same(f_v, f_mtb, ("packed", "taus")),
+                      f"qr {variant} {m_}x{n_} {dtype}: factors differ from "
+                      "mtb's")
+                row = {"phase": "gels", "dtype": str(dtype), "m": m_,
+                       "n": n_, "block": BLOCK, "variant": variant,
+                       "factor_ms": (t1 - t0) * 1e3,
+                       "bitwise_equal_to_mtb": True}
+                if m_ >= n_:
+                    row["ls_ratio"] = ls_ratio(a2, f_v.solve(b[:m_]), b[:m_],
+                                               dtype)
+                    check(row["ls_ratio"] < RESIDUAL_LIMIT,
+                          f"gels {variant} {m_}x{n_}: ratio {row['ls_ratio']}")
+                emit(row)
+        del a, b, a2, f_mtb, f_v
+    counts_gels = ops.launches()
+    for name in ("gemm_accum", "trsm", "qr_panel", "larft"):
+        check(counts_gels[name] > 0, f"kernel {name} was not launched on the "
+              "gels path")
+    counts = {k: counts[k] + counts_gels[k] for k in counts}
+
+    # ---- 7. gels(pivot=True): column-pivoted QR, global and windowed -------
+    def diag_ok(packed, windows, dtype):
+        """|r_jj| non-increasing (slack 1 + 1e3·eps), within each window."""
+        d = packed.diagonal().abs().double()
+        slack = 1.0 + 1e3 * torch.finfo(dtype).eps
+        return all(bool((d[k + 1 : k + w] <= d[k : k + w - 1] * slack
+                         + 1e-300).all()) for k, w in windows)
+
+    def is_perm(jpvt):
+        return torch.equal(jpvt.sort().values.long(),
+                           torch.arange(jpvt.shape[0], device=jpvt.device))
+
+    ops.reset_launches()
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+        a = torch.randn(QR_M, QR_N, generator=gen, device=dev, dtype=dtype)
+        b = torch.randn(QR_M, NRHS, generator=gen, device=dev, dtype=dtype)
+        rank_def = torch.matmul(
+            torch.randn(QR_M, QR_N // 2, generator=gen, device=dev,
+                        dtype=dtype),
+            torch.randn(QR_N // 2, QR_N, generator=gen, device=dev,
+                        dtype=dtype))
+        local_base = None
+        for local, variant in ((False, "mtb"), (True, "mtb"), (True, "la"),
+                               (True, "la2")):
+            before = panel_qrcp.qrcp_panel.launches
+            sync()
+            t0 = time.perf_counter()
+            fac = geqp3(a, BLOCK, variant=variant, local=local)
+            sync()
+            t1 = time.perf_counter()
+            x = fac.solve(b)
+            sync()
+            t2 = time.perf_counter()
+            panels = panel_qrcp.qrcp_panel.launches - before
+            check(panels == qr_panels, f"gels pivot {variant}: {panels} "
+                  f"panel launches, expected {qr_panels}")
+            name = f"{'local ' if local else ''}{variant} {dtype}"
+            check(is_perm(fac.jpvt), f"gels pivot {name}: jpvt is not a "
+                  "permutation")
+            windows = ([(k, BLOCK) for k in range(0, QR_N, BLOCK)] if local
+                       else [(0, QR_N)])
+            check(diag_ok(fac.packed, windows, dtype),
+                  f"gels pivot {name}: |r_jj| increases")
+            ratio = ls_ratio(a, x, b, dtype)
+            check(ratio < RESIDUAL_LIMIT,
+                  f"gels pivot {name}: least-squares ratio {ratio}")
+            if local:
+                if local_base is None:
+                    local_base = fac
+                else:
+                    check(same(fac, local_base, ("packed", "taus", "jpvt")),
+                          f"gels pivot {name}: factors differ from local "
+                          "mtb's")
+            emit({"phase": "gels_pivot", "dtype": str(dtype), "m": QR_M,
+                  "n": QR_N, "block": BLOCK, "nrhs": NRHS, "local": local,
+                  "variant": variant, "factor_ms": (t1 - t0) * 1e3,
+                  "solve_ms": (t2 - t1) * 1e3, "ls_ratio": ratio,
+                  "rank": fac.rank(), "panel_launches": panels,
+                  "bitwise_equal_to_local_mtb": local or None})
+        del local_base, fac, x
+
+        # a rank-n/2 input: the rank and the least-squares ratio, global
+        # (checked) and windowed (reported)
+        for local in (False, True):
+            sync()
+            t0 = time.perf_counter()
+            fac = geqp3(rank_def, BLOCK, local=local, variant="mtb")
+            sync()
+            t1 = time.perf_counter()
+            x = fac.solve(b)
+            rank = fac.rank()
+            ratio = ls_ratio(rank_def, x, b, dtype)
+            if not local:
+                check(rank == QR_N // 2, f"gels pivot {dtype}: rank {rank} "
+                      f"of a rank-{QR_N // 2} input")
+                check(ratio < RESIDUAL_LIMIT, f"gels pivot rank-deficient "
+                      f"{dtype}: least-squares ratio {ratio}")
+            emit({"phase": "gels_pivot_rank_deficient", "dtype": str(dtype),
+                  "m": QR_M, "n": QR_N, "local": local, "variant": "mtb",
+                  "true_rank": QR_N // 2, "rank": rank, "ls_ratio": ratio,
+                  "factor_ms": (t1 - t0) * 1e3})
+        del rank_def, fac, x
+
+        # global rtm at 4096 x 1024, bitwise vs mtb
+        a2 = a[:QR_RTM[0], :QR_RTM[1]]
+        f_mtb = geqp3(a2, BLOCK, variant="mtb")
+        sync()
+        t0 = time.perf_counter()
+        f_rtm = geqp3(a2, BLOCK, variant="rtm")
+        sync()
+        t1 = time.perf_counter()
+        check(same(f_rtm, f_mtb, ("packed", "taus", "jpvt")),
+              f"gels pivot rtm {dtype}: factors differ from mtb's")
+        emit({"phase": "gels_pivot", "dtype": str(dtype), "m": QR_RTM[0],
+              "n": QR_RTM[1], "block": BLOCK, "local": False,
+              "variant": "rtm", "factor_ms": (t1 - t0) * 1e3,
+              "bitwise_equal_to_mtb": True})
+        del a, b, a2, f_mtb, f_rtm
+    counts_piv = ops.launches()
+    for name in ("gemm_accum", "trsm", "qrcp_panel", "larft"):
+        check(counts_piv[name] > 0, f"kernel {name} was not launched on the "
+              "gels(pivot=True) path")
+    counts = {k: counts[k] + counts_piv[k] for k in counts}
     for name, count in counts.items():
         check(count > 0, f"kernel {name} was not launched on the main paths")
 
-    # ---- 6. report ---------------------------------------------------------
+    # ---- 8. report ---------------------------------------------------------
     sources = {"gemm_accum": "gemm.cu", "trsm": "trsm.cu",
                "lu_panel": "panel_lu.cu", "lu_solve_small": "trsm.cu",
                "trsm_right_lower_t": "trsm.cu",
                "fused_lu_panel_update": "fused_pu.cu",
-               "fused_cholesky_panel_update": "fused_pu.cu"}
+               "fused_cholesky_panel_update": "fused_pu.cu",
+               "qr_panel": "panel_qr.cu", "larft": "panel_qr.cu",
+               "qrcp_panel": "panel_qrcp.cu"}
     replaces = {"gemm_accum": "src/repro/kernels/blis_gemm.py:126",
                 "trsm": "src/repro/kernels/trsm.py:42",
                 "lu_panel": "src/repro/kernels/panel_lu.py:34",
@@ -573,25 +930,36 @@ def main() -> int:
                 "fused_lu_panel_update":
                     "src/repro/kernels/fused_panel_update.py:112",
                 "fused_cholesky_panel_update":
-                    "src/repro/kernels/fused_panel_update.py:194"}
+                    "src/repro/kernels/fused_panel_update.py:194",
+                "qr_panel": "src/repro/kernels/panel_qr.py:31",
+                "larft": "src/repro/kernels/panel_qr.py:31",
+                "qrcp_panel": "src/repro/kernels/panel_qrcp.py:43"}
 
     def numbers(r):
         out = {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
-        if "composed_ms" in r:
-            out["composed_ms"] = r["composed_ms"]
+        for key in ("composed_ms", "window"):
+            if key in r:
+                out[key] = numbers(r[key]) if key == "window" else r[key]
         return out
 
+    def at_shape(key):   # float64 at the top level, float32 beside it
+        return {**numbers(rows["float64"][key]), "dtype": "float64",
+                "shape": rows["float64"][key]["shape"],
+                "float32": numbers(rows["float32"][key])}
+
     kernels = []
-    for name in ops.KERNELS:   # float64 at the top level, float32 beside it
+    for name in ops.KERNELS:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{sources[name]}",
             "replaces": replaces[name], "launches": counts[name],
-            **numbers(rows["float64"][name]), "dtype": "float64",
-            "shape": rows["float64"][name]["shape"],
-            "float32": numbers(rows["float32"][name])})
+            **at_shape(name)})
+        if name == "gemm_accum":   # beta = 0, and the gels paths' products
+            kernels[-1]["shapes"] = {key: at_shape(key) for key in (
+                "gemm", "gemm_gels_vtc", "gemm_gels_vtc_pu", "gemm_gels_vtb",
+                "gemm_accum_qrcp")}
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,7 @@
 """Variant registry: scheduling variants by name.
 
 The port of :mod:`repro.core.lookahead`, for the DMFs ported so far (LU,
-Cholesky):
+Cholesky, QR, global QRCP and windowed ``qrcp_local``):
 
     fn = get_variant("lu", "la")          # -> lu_lookahead
     fn = get_variant("lu", "la2")         # -> lu_lookahead with depth=2
@@ -9,7 +9,10 @@ Cholesky):
 
 ``"la<d>"`` / ``"la_mb<d>"`` resolve the look-ahead driver with ``depth=d``
 (d panels in flight); ``"la"`` ≡ ``"la1"``.  ``la_mb`` plugs the fused
-panel-update kernel into the look-ahead driver.  The reference's ``tuned``
+panel-update kernel into the look-ahead driver; a DMF without one (QR,
+``qrcp_local``) gets its ``la`` driver.  Global QRCP has no look-ahead
+variant by policy (:data:`LOOKAHEAD_EXCLUDED`): ``"la"``/``"la_mb"``
+raise ``KeyError`` with the reason.  The reference's ``tuned``
 (autotuner cache) and ``tiled`` (tile-DAG) variants are not ported yet and
 raise ``KeyError`` naming the ROADMAP item that brings them.
 """
@@ -18,7 +21,7 @@ from __future__ import annotations
 import re
 from typing import Callable, Dict, Tuple
 
-from repro_torch.core import cholesky, lu
+from repro_torch.core import cholesky, lu, qr, qrcp
 from repro_torch.core.backend import resolve_backend
 from repro_torch.core.pipeline import supports_depth
 
@@ -33,6 +36,27 @@ _REGISTRY: Dict[str, Dict[str, Callable]] = {
         "rtm": cholesky.cholesky_tiled,
         "la": cholesky.cholesky_lookahead,
     },
+    "qr": {
+        "mtb": qr.qr_blocked,
+        "rtm": qr.qr_tiled,
+        "la": qr.qr_lookahead,
+    },
+    # no "la" row by policy (LOOKAHEAD_EXCLUDED), not by omission
+    "qrcp": {
+        "mtb": qrcp.qrcp_blocked,
+        "rtm": qrcp.qrcp_tiled,
+    },
+    "qrcp_local": {
+        "mtb": qrcp.qrcp_local_blocked,
+        "rtm": qrcp.qrcp_local_tiled,
+        "la": qrcp.qrcp_local_lookahead,
+    },
+}
+
+#: Why a DMF has no look-ahead variant: its panel reads trailing data beyond
+#: the panel columns (:attr:`StepOps.la_unsafe`).
+LOOKAHEAD_EXCLUDED: Dict[str, str] = {
+    "qrcp": qrcp.QRCP_OPS.la_unsafe,
 }
 
 #: Reference variants that this port does not resolve yet, and why.
@@ -132,6 +156,11 @@ def get_variant(dmf: str, variant: str) -> Callable:
         raise KeyError(f"unknown DMF {dmf!r}; expected one of {FACTORIZATIONS}")
     table = _REGISTRY[dmf]
     base, depth = parse_variant(variant)
+    if base in ("la", "la_mb", "tiled") and dmf in LOOKAHEAD_EXCLUDED:
+        raise KeyError(
+            f"variant {variant!r} not available for {dmf!r}: look-ahead "
+            f"(and tile-DAG) scheduling is excluded by policy — "
+            f"{LOOKAHEAD_EXCLUDED[dmf]}; have {list_variants(dmf)}")
     if base in NOT_PORTED:
         raise KeyError(f"variant {variant!r} is not ported yet: "
                        f"{NOT_PORTED[base]}; have {list_variants(dmf)}")

@@ -25,8 +25,14 @@ caller asked for (:func:`repro_torch.device.resolve_device`).  In this
 slice all ops run on one CUDA stream, in the order issued, so ``la``'s
 PF(k+1) does not yet overlap TU_k^R on the device.
 
-Not ported yet: the hooks of the two-sided and row-exhausting DMFs, and
-the ``mesh=`` engine.
+Row exhaustion.  A DMF may declare ``stop``/``can_factor``/``width``
+(QR and QRCP on wide ``m < n`` inputs end their traversal once the rows
+are exhausted) and ``la_unsafe`` (global QRCP: its panel reads trailing
+data, so ``la`` would compute another factorization; ``factorize``
+refuses it with the reason).
+
+Not ported yet: the hooks of the two-sided DMFs (Gauss–Jordan's
+``update_left``/``update_all``/``commit``), and the ``mesh=`` engine.
 """
 from __future__ import annotations
 
@@ -36,14 +42,15 @@ from typing import Any, Callable, Optional, Tuple
 import torch
 
 from repro_torch.core.backend import Backend, resolve_backend
-from repro_torch.core.blocking import BlockSpec, panel_steps
+from repro_torch.core.blocking import BlockSpec, PanelStep, panel_steps
 from repro_torch.device import resolve_device, working_copy
 from repro_torch.obs import tracer as _obs
 
 __all__ = ["StepOps", "factorize", "mark_depth_capable", "supports_depth"]
 
 #: Engine state: ``(a, aux)`` — the working matrix plus per-DMF side output
-#: (``ipiv`` for LU, None for Cholesky).
+#: (``ipiv`` for LU, ``taus`` for QR, ``(taus, jpvt)`` for QRCP, None for
+#: Cholesky).
 State = Tuple[torch.Tensor, Any]
 
 _MISSING = object()
@@ -72,6 +79,14 @@ class StepOps:
       ``st_next``'s columns and its ``factor`` in one call of ``fused``,
       which writes its results into the working copy in place.  Only
       consulted when the caller passes ``fused_pu=``.
+    * ``stop(state, st) -> bool`` (optional) — end the traversal at
+      ``st`` (QR on ``m < n`` inputs, once the rows are exhausted).
+    * ``can_factor(state, st) -> bool`` (optional) — whether panel ``st``
+      is factorable; look-ahead asks it before pre-factoring a panel.
+    * ``width(a) -> int`` — the traversal width (``a.shape[1]`` for QR).
+    * ``la_unsafe`` — the reason this DMF's ``factor`` reads trailing data
+      beyond the panel columns, so that ``la`` would compute another
+      factorization; the engine refuses ``variant="la"`` with it.
     """
 
     name: str
@@ -82,6 +97,16 @@ class StepOps:
     swap: Optional[Callable[..., State]] = None
     tiles: Optional[Callable[..., State]] = None
     pu: Optional[Callable[..., Tuple[State, Any]]] = None
+    stop: Optional[Callable[[State, PanelStep], bool]] = None
+    can_factor: Optional[Callable[[State, PanelStep], bool]] = None
+    width: Callable[[torch.Tensor], int] = lambda a: a.shape[0]
+    la_unsafe: Optional[str] = None
+
+    def _stop(self, state: State, st: PanelStep) -> bool:
+        return self.stop is not None and self.stop(state, st)
+
+    def _factorable(self, state: State, st: PanelStep) -> bool:
+        return self.can_factor is None or self.can_factor(state, st)
 
 
 def factorize(
@@ -121,6 +146,10 @@ def factorize(
             raise ValueError(f"{ops.name!r} has no RTM (tiled) fragmentation")
         return _run_blocked(ops, work, b, be, panel_fn, tiled=True)
     if variant == "la":
+        if ops.la_unsafe is not None:
+            raise ValueError(
+                f"{ops.name!r} cannot be scheduled with look-ahead: "
+                f"{ops.la_unsafe}")
         if depth < 1:
             raise ValueError(f"look-ahead depth must be >= 1, got {depth}")
         return _run_la(ops, work, b, depth, be, panel_fn, fused_pu)
@@ -143,9 +172,11 @@ def _run_blocked(ops: StepOps, a, b, backend: Backend, panel_fn,
     """MTB: PF(k) ; SWAP(k) ; TU(k) over the whole trailing matrix as one
     update — or, for RTM (``tiled``), fragmented into per-tile tasks."""
     tr = _obs.active()
-    n = a.shape[1]
+    n = ops.width(a)
     state = ops.init(a)
     for i, st in enumerate(panel_steps(n, b)):
+        if ops._stop(state, st):
+            break
         state, ctx = _call(tr, "PF", f"PF({i})",
                            lambda: ops.factor(state, st, backend, panel_fn),
                            step=i, it=i)
@@ -168,7 +199,7 @@ def _run_la(ops: StepOps, a, b, depth, backend: Backend, panel_fn,
     ahead of the bulk TU_k^R; d panels in flight (Listing 5).  With
     ``fused_pu`` (LA_MB) that update and PF(k+1) are one fused call."""
     tr = _obs.active()
-    n = a.shape[1]
+    n = ops.width(a)
     state = ops.init(a)
     steps = list(panel_steps(n, b))
     if not steps:
@@ -176,9 +207,12 @@ def _run_la(ops: StepOps, a, b, depth, backend: Backend, panel_fn,
     fused = fused_pu is not None and ops.pu is not None
 
     # PF(0) runs before the pipelined loop (Listing 5 prologue).
-    state, ctx = _call(tr, "PF", "PF(0)",
-                       lambda: ops.factor(state, steps[0], backend, panel_fn),
-                       step=0, it=-1, depth=1)
+    ctx = None
+    if ops._factorable(state, steps[0]):
+        state, ctx = _call(
+            tr, "PF", "PF(0)",
+            lambda: ops.factor(state, steps[0], backend, panel_fn),
+            step=0, it=-1, depth=1)
 
     for i, st in enumerate(steps):
         # Panel-i interchanges, deferred from the iteration that factored
@@ -188,12 +222,17 @@ def _run_la(ops: StepOps, a, b, depth, backend: Backend, panel_fn,
             state = _call(tr, "SWAP", f"SWAP({i})",
                           lambda: ops.swap(state, ctx, st, backend),
                           step=i, it=i)
-        if st.k_next >= n:
+        if ops._stop(state, st) or st.k_next >= n:
             break
 
         # PU chain: narrow updates of the next `dd` panels' columns;
         # PF(i+1) fires right after the first one (fused with it: LA_MB).
         dd = min(depth, len(steps) - 1 - i)
+        if dd >= 1 and not ops._factorable(state, steps[i + 1]):
+            # the next panel starts beyond the factorable rows (QR on
+            # m < n): nothing to pre-factor, so the whole trailing range
+            # is TU_right, as under mtb
+            dd = 0
         nctx = _MISSING
         for j in range(1, dd + 1):
             stj = steps[i + j]

@@ -1,7 +1,7 @@
 """LAPACK-style drivers built on the DMF layer: ``lu_factor``, ``gesv``,
-``cholesky_factor`` and ``posv``.
+``cholesky_factor``, ``posv``, ``qr_factor``, ``geqp3`` and ``gels``.
 
-The port of :mod:`repro.solve.drivers` for LU and Cholesky.  All take
+The port of :mod:`repro.solve.drivers` for LU, Cholesky, QR and QRCP.  All take
 ``variant=`` (``mtb``/``rtm``/``la``/``la<d>``/``la_mb``, resolved by
 :func:`repro_torch.core.lookahead.get_variant`), ``depth=``, ``backend=``
 (``"cuda"`` — the hand-written kernels, the default — or ``"torch"`` — the
@@ -18,9 +18,14 @@ from repro_torch.core.backend import resolve_backend
 from repro_torch.core.blocking import BlockSpec, normalize_block
 from repro_torch.core.lookahead import deepen, get_variant
 from repro_torch.obs import tracer as _obs
-from repro_torch.solve.factors import CholeskyFactors, LUFactors
+from repro_torch.solve.factors import (CholeskyFactors, LUFactors,
+                                       QRCPFactors, QRFactors)
 
-__all__ = ["lu_factor", "gesv", "cholesky_factor", "posv"]
+__all__ = ["lu_factor", "gesv", "cholesky_factor", "posv", "qr_factor",
+           "geqp3", "gels"]
+
+_NO_MESH = ("mesh= (the distributed engine) is not ported yet: ROADMAP "
+            "Queue 1 item 17")
 
 
 def _traced(fn):
@@ -81,3 +86,78 @@ def posv(a, b, block: BlockSpec = 128, *, variant: str = "la",
     """Solve ``A·X = B`` for symmetric positive-definite A (Cholesky)."""
     return cholesky_factor(a, block, variant=variant, depth=depth,
                            backend=backend, device=device).solve(b)
+
+
+@_traced
+def qr_factor(a, block: BlockSpec = 128, *, variant: str = "la",
+              depth: int = 1, backend="cuda", device=None,
+              mesh=None) -> QRFactors:
+    """Householder QR (GEQRF); any m, n (wide inputs stop once the rows
+    are exhausted)."""
+    if mesh is not None:
+        raise NotImplementedError(_NO_MESH)
+    be = resolve_backend(backend)
+    packed, taus = get_variant("qr", _deepen(variant, depth))(
+        a, block, backend=be, device=device)
+    return QRFactors(packed=packed, taus=taus, block=normalize_block(block),
+                     backend=be)
+
+
+@_traced
+def geqp3(a, block: BlockSpec = 128, *, variant=None, local: bool = False,
+          depth: int = 1, backend="cuda", device=None) -> QRCPFactors:
+    """Column-pivoted QR (GEQP3).
+
+    ``local=False`` (default): global pivoting, rank-revealing, with no
+    look-ahead variant (its panel reads the whole trailing block), so
+    ``mtb`` (the default) or ``rtm``, and ``depth`` must stay 1.
+    ``local=True``: windowed pivoting (``qrcp_local``), whose default
+    variant is ``la`` and whose ``depth=`` keeps d panels in flight.
+    """
+    be = resolve_backend(backend)
+    if local:
+        dmf, variant = "qrcp_local", _deepen(variant or "la", depth)
+    else:
+        if depth != 1:
+            raise ValueError(
+                "depth > 1 requires local=True: global QRCP has no "
+                "look-ahead window to deepen (DESIGN.md §11)")
+        dmf, variant = "qrcp", variant or "mtb"
+    packed, taus, jpvt = get_variant(dmf, variant)(a, block, backend=be,
+                                                   device=device)
+    return QRCPFactors(packed=packed, taus=taus, jpvt=jpvt,
+                       block=normalize_block(block), backend=be)
+
+
+@_traced
+def gels(a, b, block: BlockSpec = 128, *, variant: str = "la",
+         depth: int = 1, backend="cuda", pivot: bool = False,
+         local: bool = False, rcond=None, device=None, mesh=None):
+    """Least squares ``argmin‖A·X − B‖₂`` for m ≥ n via Householder QR.
+
+    ``pivot=True`` goes through :func:`geqp3` and returns the
+    rank-truncated basic solution (``rcond`` sets the cutoff).  Global
+    pivoting has no look-ahead variant, so the default ``variant="la"``
+    becomes ``"mtb"`` there; an explicit variant passes through.
+    ``local=True`` (with ``pivot=True``) selects windowed pivoting, where
+    the ``variant``/``depth`` defaults pass through as for the others.
+    """
+    if mesh is not None:
+        raise NotImplementedError(_NO_MESH)
+    if pivot:
+        if local:
+            fac = geqp3(a, block, variant=variant, local=True, depth=depth,
+                        backend=backend, device=device)
+        else:
+            qv = "mtb" if (variant, depth) == ("la", 1) \
+                else _deepen(variant, depth)
+            fac = geqp3(a, block, variant=qv, backend=backend, device=device)
+        return fac.solve(b, rcond=rcond)
+    if local:
+        raise ValueError("local=True selects windowed *pivoting* and "
+                         "requires pivot=True")
+    if rcond is not None:
+        raise ValueError("rcond requires pivot=True (rank truncation needs "
+                         "the column-pivoted factorization)")
+    return qr_factor(a, block, variant=variant, depth=depth, backend=backend,
+                     device=device).solve(b)

@@ -1,8 +1,10 @@
 """Factorization-result objects — factor once, solve many.
 
-The port of :class:`repro.solve.factors.LUFactors` and
-:class:`~repro.solve.factors.CholeskyFactors`: the packed GETRF / POTRF
-output with the block size and backend it was built with, and the
+The port of :class:`repro.solve.factors.LUFactors`,
+:class:`~repro.solve.factors.CholeskyFactors`,
+:class:`~repro.solve.factors.QRFactors` and
+:class:`~repro.solve.factors.QRCPFactors`: the packed GETRF / POTRF /
+GEQRF / GEQP3 output with the block size and backend it was built with, and the
 operations LAPACK derives from it (``solve``, transposed ``solve``,
 ``logdet``, ``inverse``).
 
@@ -12,7 +14,8 @@ matrix.  :meth:`LUFactors.from_numpy` takes the reference's ``lu`` and
 ``ipiv`` arrays (as NumPy) and recomputes ``perm``; :meth:`LUFactors.to_numpy`
 gives back ``(lu, ipiv, perm)``, which the reference's
 ``LUFactors.from_packed(lu, ipiv)`` accepts.  :class:`CholeskyFactors`
-carries its lower factor ``l`` the same way.  So a system factored by one
+carries its lower factor ``l`` the same way, :class:`QRFactors` its
+``(packed, taus)`` and :class:`QRCPFactors` its ``(packed, taus, jpvt)``.  So a system factored by one
 package can be solved by the other.
 """
 from __future__ import annotations
@@ -25,11 +28,14 @@ import torch
 
 from repro_torch.core.backend import Backend, resolve_backend
 from repro_torch.core.blocking import BlockSpec
+from repro_torch.core.blocking import panel_steps
 from repro_torch.core.lu import permutation_from_pivots
+from repro_torch.core.qr import Panel, _pad_tau, apply_qt_blocked, \
+    build_t_matrix, unpack_v
 from repro_torch.device import resolve_device, working_copy
 from repro_torch.solve.triangular import lu_solve_packed, trsm_blocked
 
-__all__ = ["LUFactors", "CholeskyFactors"]
+__all__ = ["LUFactors", "CholeskyFactors", "QRFactors", "QRCPFactors"]
 
 
 def _rhs(b, like: torch.Tensor, n: int) -> tuple[torch.Tensor, bool]:
@@ -164,3 +170,164 @@ class CholeskyFactors:
         """``A⁻¹`` via n simultaneous solves."""
         return self.solve(torch.eye(self.n, dtype=self.l.dtype,
                                     device=self.l.device))
+
+
+@dataclasses.dataclass(frozen=True)
+class QRFactors:
+    """GEQRF output: R on/above the diagonal, the reflectors V below it,
+    ``taus`` of length ``min(m, n)``."""
+
+    packed: torch.Tensor
+    taus: torch.Tensor
+    backend: Backend
+    block: BlockSpec = 128
+
+    @classmethod
+    def from_numpy(cls, packed, taus, *, block: BlockSpec = 128,
+                   device=None,
+                   backend: Union[str, Backend] = "cuda") -> "QRFactors":
+        """Factors from NumPy arrays (e.g. the reference's), on ``device``
+        (None = the GPU)."""
+        dev = resolve_device(device)
+        return cls(packed=working_copy(packed, dev),
+                   taus=working_copy(taus, dev), block=block,
+                   backend=resolve_backend(backend))
+
+    def to_numpy(self) -> tuple[np.ndarray, np.ndarray]:
+        """``(packed, taus)`` as NumPy arrays."""
+        return self.packed.cpu().numpy(), self.taus.cpu().numpy()
+
+    @property
+    def m(self) -> int:
+        return self.packed.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.packed.shape[1]
+
+    def apply_qt(self, c) -> torch.Tensor:
+        """``Qᵀ·C`` panel by panel (ORMQR analogue); T of each panel from
+        :func:`~repro_torch.core.qr.build_t_matrix` (one ``larft`` launch
+        on the card).  Returns a new tensor."""
+        c = torch.as_tensor(c).to(device=self.packed.device,
+                                  dtype=self.packed.dtype).clone()
+        if c.shape[0] != self.m:
+            raise ValueError(f"rows {c.shape[0]} != m = {self.m}")
+        m, n = self.m, self.n
+        for st in panel_steps(n, self.block):
+            k, bk = st.k, st.bk
+            if k >= m:
+                break
+            v = unpack_v(self.packed[k:, k : k + bk], bk)
+            t = build_t_matrix(v, _pad_tau(self.taus[k : k + bk], bk))
+            apply_qt_blocked(Panel.of(v, t), c[k:], self.backend)
+        return c
+
+    def _r_solve(self, qtb: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+        return trsm_blocked(r, qtb, lower=False, block=self.block,
+                            backend=self.backend)
+
+    def solve(self, b) -> torch.Tensor:
+        """Least-squares solution ``argmin‖A·X − B‖₂`` (m ≥ n)."""
+        if self.m < self.n:
+            raise ValueError("QRFactors.solve requires m >= n "
+                             "(underdetermined systems need LQ)")
+        b, was_vec = _rhs(b, self.packed, self.m)
+        qtb = self.apply_qt(b)
+        x = self._r_solve(qtb[: self.n], torch.triu(self.packed[: self.n]))
+        return x[:, 0] if was_vec else x
+
+    def logdet(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """slogdet of a square A: each reflector with ``tau != 0`` has
+        determinant −1, so ``det A = (−1)^#{tau != 0}·Π r_jj``."""
+        if self.m != self.n:
+            raise ValueError("logdet requires a square matrix")
+        d = torch.diagonal(self.packed)
+        flips = int((self.taus != 0).sum())
+        sign = (-1.0 if flips % 2 else 1.0) * torch.prod(torch.sign(d))
+        return sign, torch.sum(torch.log(torch.abs(d)))
+
+    def inverse(self) -> torch.Tensor:
+        """``A⁻¹`` of a square A via n simultaneous solves."""
+        if self.m != self.n:
+            raise ValueError("inverse requires a square matrix")
+        return self.solve(torch.eye(self.n, dtype=self.packed.dtype,
+                                    device=self.packed.device))
+
+
+@dataclasses.dataclass(frozen=True)
+class QRCPFactors:
+    """Pivoted-QR output: ``A[:, jpvt] = Q·R`` (GEQP3 or ``qrcp_local``).
+
+    :meth:`rank` and :meth:`solve` truncate per column, ``|r_jj| >
+    rcond·max|r_jj|`` (diagonal-aware): under global pivoting that is the
+    first ``rank()`` columns; under windowed pivoting it also drops
+    deficient columns inside early windows.
+    """
+
+    packed: torch.Tensor
+    taus: torch.Tensor
+    jpvt: torch.Tensor
+    backend: Backend
+    block: BlockSpec = 128
+
+    @classmethod
+    def from_numpy(cls, packed, taus, jpvt, *, block: BlockSpec = 128,
+                   device=None,
+                   backend: Union[str, Backend] = "cuda") -> "QRCPFactors":
+        """Factors from NumPy arrays (e.g. the reference's), on ``device``
+        (None = the GPU)."""
+        dev = resolve_device(device)
+        return cls(packed=working_copy(packed, dev),
+                   taus=working_copy(taus, dev),
+                   jpvt=working_copy(np.asarray(jpvt), dev, torch.int32),
+                   block=block, backend=resolve_backend(backend))
+
+    def to_numpy(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """``(packed, taus, jpvt)`` as NumPy arrays."""
+        return (self.packed.cpu().numpy(), self.taus.cpu().numpy(),
+                self.jpvt.cpu().numpy())
+
+    @property
+    def m(self) -> int:
+        return self.packed.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.packed.shape[1]
+
+    def _qr(self) -> QRFactors:
+        return QRFactors(packed=self.packed, taus=self.taus,
+                         block=self.block, backend=self.backend)
+
+    def apply_qt(self, c) -> torch.Tensor:
+        return self._qr().apply_qt(c)
+
+    def _keep(self, rcond) -> torch.Tensor:
+        d = torch.abs(torch.diagonal(self.packed))
+        if rcond is None:
+            rcond = max(self.m, self.n) * torch.finfo(self.packed.dtype).eps
+        return d > rcond * torch.max(d)
+
+    def rank(self, rcond=None) -> int:
+        """Numerical rank: #{j : |r_jj| > rcond·max|r_jj|}."""
+        return int(self._keep(rcond).sum())
+
+    def solve(self, b, *, rcond=None) -> torch.Tensor:
+        """Rank-truncated basic solution of ``min‖A·X − B‖₂`` (m ≥ n):
+        columns below the cutoff are masked out of the triangular solve
+        (diagonal 1, coupling 0), then ``x[jpvt] = y``."""
+        if self.m < self.n:
+            raise ValueError("QRCPFactors.solve requires m >= n "
+                             "(underdetermined systems need LQ)")
+        b, was_vec = _rhs(b, self.packed, self.m)
+        n = self.n
+        keep = self._keep(rcond)
+        qtb = torch.where(keep[:, None], self.apply_qt(b)[:n], 0.0)
+        eye = torch.eye(n, dtype=self.packed.dtype, device=self.packed.device)
+        rmod = torch.where(keep[:, None] & keep[None, :],
+                           torch.triu(self.packed[:n]), eye)
+        y = self._qr()._r_solve(qtb, rmod)
+        x = torch.empty_like(y)
+        x[self.jpvt.long()] = y
+        return x[:, 0] if was_vec else x

@@ -18,8 +18,9 @@ import torch
 
 from repro_torch.core import cholesky, lookahead, lu
 from repro_torch.kernels import _build
-from repro_torch.solve import (CholeskyFactors, LUFactors, cholesky_factor,
-                               gesv, lu_factor, posv)
+from repro_torch.solve import (CholeskyFactors, LUFactors, QRCPFactors,
+                               QRFactors, cholesky_factor, geqp3, gels, gesv,
+                               lu_factor, posv, qr_factor)
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 PORT = SRC / "repro_torch"
@@ -57,7 +58,10 @@ def test_no_source_file_imports_jax_or_the_reference():
 @pytest.mark.parametrize("entry", ["lu_factor", "gesv", "variant",
                                    "from_numpy", "lu_blocked",
                                    "cholesky_factor", "posv", "la_mb",
-                                   "chol_from_numpy", "cholesky_blocked"])
+                                   "chol_from_numpy", "cholesky_blocked",
+                                   "qr_factor", "gels", "gels_pivot",
+                                   "geqp3", "qr_from_numpy",
+                                   "qrcp_from_numpy"])
 def test_entry_points_default_to_the_gpu_and_raise_without_one(
         monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -74,12 +78,19 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(
         "chol_from_numpy": lambda: CholeskyFactors.from_numpy(a, block=2),
         "cholesky_blocked": lambda: cholesky.cholesky_blocked(
             a, 2, backend="torch"),
+        "qr_factor": lambda: qr_factor(a, 2),
+        "gels": lambda: gels(a, b, 2),
+        "gels_pivot": lambda: gels(a, b, 2, pivot=True, local=True),
+        "geqp3": lambda: geqp3(a, 2),
+        "qr_from_numpy": lambda: QRFactors.from_numpy(a, np.ones(4), block=2),
+        "qrcp_from_numpy": lambda: QRCPFactors.from_numpy(
+            a, np.ones(4), np.arange(4), block=2),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
 
 
-@pytest.mark.parametrize("driver", [gesv, posv])
+@pytest.mark.parametrize("driver", [gesv, posv, gels])
 def test_explicit_cpu_runs_and_returns_cpu_tensors(driver):
     x = driver(np.eye(4) * 4.0, np.ones((4, 1)), 2, device="cpu")
     assert x.device.type == "cpu"
@@ -87,12 +98,14 @@ def test_explicit_cpu_runs_and_returns_cpu_tensors(driver):
 
 
 def test_every_kernel_source_is_built_and_counted():
-    assert set(_build.sources()) == {"gemm", "trsm", "panel_lu", "fused_pu"}
+    assert set(_build.sources()) == {"gemm", "trsm", "panel_lu", "fused_pu",
+                                     "panel_qr", "panel_qrcp"}
     from repro_torch.kernels import ops
     assert set(ops.KERNELS) == {"gemm_accum", "trsm", "lu_panel",
                                 "lu_solve_small", "trsm_right_lower_t",
                                 "fused_lu_panel_update",
-                                "fused_cholesky_panel_update"}
+                                "fused_cholesky_panel_update", "qr_panel",
+                                "larft", "qrcp_panel"}
 
 
 def test_ptxas_summary_parses_a_verbose_log():

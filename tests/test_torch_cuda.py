@@ -5,9 +5,12 @@ Phase 3 of ``chip_smoke.py`` at small shapes: every kernel is built from
 card.  The kernel and its plain version sum the same terms in the same
 order, so they are held to 4·max(k,8)·eps relative, k being the number of
 terms summed per element (the panel bitwise; the fused panel updates
-bitwise against the kernels they replace);
+bitwise against the kernels they replace; the QR and QRCP panels, whose
+reductions group differently from their plain versions, within
+4·max(m,nb,8)·eps, pivots equal);
 whole solves keep the reference's 200·max(m,n,8)·eps, and every schedule
-of LU and Cholesky gives bitwise the factors of ``mtb``.  Marked ``cuda``;
+of LU, Cholesky, QR and ``qrcp_local`` gives bitwise the factors of
+``mtb``.  Marked ``cuda``;
 each test skips (inside the ``card`` fixture, never at import or
 collection) when no GPU is present.  On a machine with one:
 
@@ -18,9 +21,12 @@ import pytest
 import torch
 
 from repro_torch.core.cholesky import cholesky_panel
-from repro_torch.kernels import blis_gemm, ops, panel_lu, trsm
+from repro_torch.core.qr import unpack_v
+from repro_torch.kernels import blis_gemm, ops, panel_lu, panel_qr, \
+    panel_qrcp, trsm
 from repro_torch.kernels import fused_panel_update as fpu
-from repro_torch.solve import cholesky_factor, gesv, lu_factor, posv
+from repro_torch.solve import cholesky_factor, geqp3, gels, gesv, \
+    lu_factor, posv, qr_factor
 
 pytestmark = pytest.mark.cuda
 
@@ -292,3 +298,97 @@ def test_trsm_right_matches_plain(card, dtype, m, bn, unit):
     assert trsm.trsm_right_lower_t.launches == before + 1
     assert got.data_ptr() == rhs.data_ptr()
     assert _rel(got, ref) < _kernel_tol(dtype, bn)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,nb", [(1, 1), (40, 16), (2000, 128), (5, 8),
+                                  (300, 33)])
+def test_qr_panel_and_larft_match_plain(card, dtype, m, nb):
+    src = _randn((m + 3, nb + 7), dtype, card, 30)
+    if nb > 2:
+        src[:, 9] = 0.0          # a zero panel column stays zero: tau = 0
+    panel = src[3:, 7:]                    # a strided view, as the engine's
+    ref = panel.clone()
+    _, tau_ref, t_ref = panel_qr.qr_panel_plain(ref)
+    before = panel_qr.qr_panel.launches
+    got, tau, t = panel_qr.qr_panel(panel)
+    assert panel_qr.qr_panel.launches == before + 1
+    assert got.data_ptr() == panel.data_ptr()
+    tol = _kernel_tol(dtype, max(m, nb))
+    assert _rel(panel, ref) < tol
+    assert _rel(tau, tau_ref) < tol and _rel(t, t_ref) < tol
+    v = unpack_v(panel, nb)
+    before = panel_qr.larft.launches
+    t2 = panel_qr.larft(v, tau)
+    assert panel_qr.larft.launches == before + 1
+    assert torch.equal(t2, t)    # the same device routine on the same V
+    assert _rel(t2, panel_qr.larft_plain(v, tau)) < tol
+    if nb > 2:
+        assert float(tau[2]) == 0.0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_qr_panel_is_deterministic(card, dtype):
+    a = _randn((3000, 128), dtype, card, 31)
+    outs = [panel_qr.qr_panel(a.clone()) for _ in range(3)]
+    for o in outs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(o, outs[0]))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("r,c,steps", [(300, 300, 32), (2000, 128, 128),
+                                       (40, 90, 16), (1, 1, 1), (64, 8, 8)])
+def test_qrcp_panel_matches_plain(card, dtype, r, c, steps):
+    src = _randn((r, c + 5), dtype, card, 32)
+    block = src[:, 5:]
+    ref = block.clone()
+    want = panel_qrcp.qrcp_panel_plain(ref, steps)
+    before = panel_qrcp.qrcp_panel.launches
+    got = panel_qrcp.qrcp_panel(block, steps)
+    assert panel_qrcp.qrcp_panel.launches == before + 1
+    assert got[0].data_ptr() == block.data_ptr()
+    assert torch.equal(got[4], want[4])                    # pivots
+    assert got[2].stride() == (1, c)                       # F stored as Fᵀ
+    tol = _kernel_tol(dtype, max(r, c))
+    for x, y in zip(got[:4], want[:4]):
+        assert _rel(x, y) < tol
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_qr_and_qrcp_local_variants_bitwise_on_the_card(card, dtype):
+    m, n, b = 300, 200, 32
+    a = _randn((m, n), dtype, card, 33)
+    base = qr_factor(a, b, variant="mtb")
+    for variant in ("rtm", "la", "la2", "la_mb"):
+        fac = qr_factor(a, b, variant=variant)
+        assert torch.equal(fac.packed, base.packed), variant
+        assert torch.equal(fac.taus, base.taus), variant
+    wide = _randn((90, 200), dtype, card, 34)
+    wbase = qr_factor(wide, b, variant="mtb")
+    for variant in ("rtm", "la", "la2"):
+        assert torch.equal(qr_factor(wide, b, variant=variant).packed,
+                           wbase.packed), variant
+    lbase = geqp3(a, b, variant="mtb", local=True)
+    for variant in ("la", "la2", "rtm"):
+        fac = geqp3(a, b, variant=variant, local=True)
+        assert torch.equal(fac.packed, lbase.packed), variant
+        assert torch.equal(fac.jpvt, lbase.jpvt), variant
+    g = geqp3(a, b)
+    assert torch.equal(geqp3(a, b, variant="rtm").packed, g.packed)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("pivot,local", [(False, False), (True, False),
+                                         (True, True)])
+def test_gels_on_the_card(card, dtype, pivot, local):
+    m, n, b = 400, 150, 32
+    a = _randn((m, n), dtype, card, 35)
+    rhs = _randn((m, 4), dtype, card, 36)
+    ops.reset_launches()
+    x = gels(a, rhs, b, pivot=pivot, local=local)
+    counts = ops.launches()
+    kernel = "qrcp_panel" if pivot else "qr_panel"
+    assert counts[kernel] == -(-n // b)
+    assert counts["larft"] > 0          # the solve's Qᵀ apply
+    ref = torch.linalg.lstsq(a.double().cpu(), rhs.double().cpu()).solution
+    assert _rel(x.cpu(), ref) < _tol(dtype, m, n)

@@ -153,9 +153,10 @@ def test_tracing_is_bitwise_invisible():
 
 
 def test_variant_registry():
-    for dmf in ("lu", "cholesky"):
+    for dmf in ("lu", "cholesky", "qr", "qrcp_local"):
         assert lookahead.list_variants(dmf) == ("mtb", "rtm", "la", "la2",
                                                 "la_mb")
+    assert lookahead.list_variants("qrcp") == ("mtb", "rtm")
     assert lookahead.parse_variant("la3") == ("la", 3)
     assert lookahead.parse_variant("la_mb2") == ("la_mb", 2)
     assert lookahead.parse_variant("mtb") == ("mtb", 1)
@@ -168,8 +169,10 @@ def test_variant_registry():
         lookahead.get_variant("lu", "tuned")
     with pytest.raises(KeyError, match="Queue 1 item 15"):
         lookahead.get_variant("cholesky", "tiled")
-    with pytest.raises(KeyError):
-        lookahead.get_variant("qr", "la")
+    with pytest.raises(KeyError, match="unknown DMF"):
+        lookahead.get_variant("ldlt", "la")      # not ported yet
+    with pytest.raises(KeyError, match="excluded by policy"):
+        lookahead.get_variant("qrcp", "la")
     with pytest.raises(KeyError):
         lookahead.get_variant("lu", "rtm2")
     with pytest.raises(ValueError, match="pins depth=2"):
