@@ -11,13 +11,16 @@
    LU and Cholesky; the 16384 x 128 QR panel, and the first global QRCP
    block, 16384 x 4096 with 128 steps, and a 16384 x 128 window; the GEMM
    also at the gels paths' products, the 16384-deep V^T C and V^T B and
-   the QRCP update; float64 and float32), with its time, the plain
-   version's, one library call's (or, for the fused panel updates, which
-   no one library call computes, the composed kernels' they replace) and
-   the bound (bytes or operations) for the same work.  The fused panel updates are held
-   bitwise to the composed kernels, pivots included; the QR and QRCP
-   panels within 4·k·eps of their plain versions, k the longest chain of
-   terms the kernel sums for one element, QRCP pivots equal.
+   the QRCP update; the Hessenberg panel at n = 8192, 128 columns from
+   k = 0 and k = 4096, and from k = 0 at n = 2048; float64 and float32),
+   with its time, the plain version's, one library call's (or, for the
+   fused panel updates, which no one library call computes, the composed
+   kernels' they replace) and the bound (bytes or operations) for the
+   same work.  The fused panel
+   updates are held bitwise to the composed kernels, pivots included; the
+   QR, QRCP and Hessenberg panels within 4·k·eps of their plain versions,
+   k the longest chain of terms the kernel sums for one element, QRCP
+   pivots equal.
 4. main path: ``gesv`` (LU with partial pivoting, then the solves) through
    the port's entry points, under ``mtb``/``la``/``la2``/``la_mb`` at
    n = 8192 and ``rtm`` at n = 2048, plus n = 128 with block 128 (the fused
@@ -40,6 +43,14 @@
    ``jpvt`` a permutation, ``|r_jj|`` non-increasing (within each window
    for ``local``), the least-squares ratio, ``local`` look-ahead bitwise
    equal to ``local`` ``mtb``, and on a rank-n/2 input the rank.
+8. ``gehrd`` (Hessenberg reduction, ``HessenbergFactors``) at n = 8192
+   under ``mtb`` and at n = 2048 under ``rtm``: H exactly zero below the
+   first subdiagonal, ‖QᵀQ − I‖ and ‖A − Q·H·Qᵀ‖ scaled by n·eps, ``rtm``
+   bitwise equal to ``mtb``, one panel launch per panel, wall times, the
+   traced PF/TU shares; ``eigvals()`` of a symmetric n = 512 input against
+   ``torch.linalg.eigvalsh``.
+9. ``gecon`` and ``getri`` at n = 2048: the condition estimate against
+   the exact 1/(‖A‖₁·‖A⁻¹‖₁), and the scaled residual of the inverse.
 
 Launch counts are set to 0 just before each path and read just after it;
 each kernel of a path must have launched in it.
@@ -59,17 +70,20 @@ import sys
 import time
 from pathlib import Path
 
-N, BLOCK, NRHS = 8192, 128, 16   # the main path
+N, BLOCK, NRHS = 8192, 128, 16   # the main path (and gehrd's n)
 QR_M, QR_N = 16384, 4096         # the gels paths: a tall 4:1 system
 QR_RTM = (4096, 1024)            # rtm's launches grow as panels x tiles
 QR_WIDE = (1024, 2048)           # wide QR: the row-exhaustion stop
 RTM_N = 2048                     # rtm's per-tile launches grow as (n/b)^3
 SMALL_N = 128                    # one panel: the fused small solve
+EIG_N = 512                      # gehrd + eigvals of a symmetric input
+COND_N = 2048                    # gecon and getri
 SEED = 0
 #: Peaks of one H100 SXM: 67 TFLOP/s for float32 outside the tensor cores
 #: and for float64 through them (NVIDIA data sheet); 3.35 TB/s of HBM3.
 PEAK_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50e6                  # the H100's L2 cache (NVIDIA data sheet)
 RESIDUAL_LIMIT = 100.0
 
 
@@ -96,12 +110,13 @@ def main() -> int:
     from repro_torch.core.backend import no_tf32
     from repro_torch.core.cholesky import cholesky_panel, cholesky_unblocked
     from repro_torch.core import qr
-    from repro_torch.kernels import (_build, blis_gemm, ops, panel_lu,
-                                     panel_qr, panel_qrcp, trsm)
+    from repro_torch.kernels import (_build, blis_gemm, ops,
+                                     panel_hessenberg, panel_lu, panel_qr,
+                                     panel_qrcp, trsm)
     from repro_torch.kernels import fused_panel_update as fpu
     from repro_torch.obs import tracer
-    from repro_torch.solve import (cholesky_factor, geqp3, gesv, lu_factor,
-                                   qr_factor)
+    from repro_torch.solve import (cholesky_factor, gecon, gehrd, geqp3,
+                                   gesv, getri, lu_factor, qr_factor)
 
     dev = torch.device("cuda")
 
@@ -142,6 +157,13 @@ def main() -> int:
         t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
         return (max(t_ops, t_bytes) * 1e3,
                 "operations" if t_ops >= t_bytes else "bytes")
+
+    def streamed(passes: float, block: float) -> float:
+        """The elements a panel that passes over a block once a step must
+        fetch from HBM: every pass where the block exceeds the L2 cache,
+        one read where it fits.  No L2 rate is published, so the passes
+        over L2 are not charged and such a bound is a floor."""
+        return passes if block * size > L2_BYTES else block
 
     # ---- 1. device ---------------------------------------------------------
     smi = subprocess.run(
@@ -456,7 +478,8 @@ def main() -> int:
         # and a qrcp_local window (16384 x 128); pivots equal to the plain
         # version's, arrays within 4·k·eps, k as for the QR panel (up to
         # BLOCK terms of the F recurrence).  The bound counts the per-step
-        # pass over the block.  No PyTorch call computes it.
+        # pass over the block where it exceeds L2 (one read of the
+        # L2-resident window).  No PyTorch call computes it.
         g_qrcp = panel_qrcp._grid(sfx, QR_M, BLOCK)
         qrcp_rows = {}
         for cols in (QR_N, BLOCK):
@@ -486,13 +509,66 @@ def main() -> int:
                 plain_ms=time_ms(lambda: panel_qrcp.qrcp_panel_plain(
                     work.copy_(blk0), BLOCK), 1) - copy_ms,
                 library_ms=None,
-                bound=bound(flops, (passes + QR_M * cols + QR_M * BLOCK
+                bound=bound(flops, (streamed(passes, QR_M * cols)
+                                    + QR_M * cols + QR_M * BLOCK
                                     + cols * BLOCK) * size))
             del blk0, bk_, bp_, got, want, work
         res["qrcp_panel"] = {**qrcp_rows[QR_N], "window": qrcp_rows[BLOCK]}
         check(qrcp_rows[BLOCK]["rel_err"] <= qrcp_rows[BLOCK]["tol"],
               f"qrcp_panel {dtype} window: kernel vs plain rel err "
               f"{qrcp_rows[BLOCK]['rel_err']}")
+
+        # xLAHR2: gehrd's first panel (k = 0) and one from the middle
+        # (k = N/2) of an N x N matrix, and the first panel of the rtm
+        # path's RTM_N x RTM_N matrix (L2-resident in both dtypes), in
+        # place.
+        # Arrays within 4·c·eps of the plain version, c the longest chain
+        # of terms the kernel sums for one element: a GEMV row (a lane's
+        # ⌈(N−k)/32⌉ columns and five shuffle steps) or a cross-block sum
+        # (⌈N/G⌉ rows, then G partials), then the 2·BLOCK terms of the
+        # right and left updates.  The bound
+        # counts each column's GEMV pass over columns kj+1.. of every row
+        # where the matrix exceeds L2 (one read of it where it fits), the
+        # panel read and written, and V and W written.  No PyTorch call
+        # computes it.
+        hess_rows = {}
+        for nh, k0 in ((N, 0), (N, N // 2), (RTM_N, 0)):
+            g_hess = panel_hessenberg._grid(sfx, nh, BLOCK)
+            a0 = randn(nh, nh)
+            ak, ap = a0.clone(), a0.clone()
+            got = panel_hessenberg.hessenberg_panel(ak, k0, BLOCK)
+            want = panel_hessenberg.hessenberg_panel_plain(ap, k0, BLOCK)
+            sync()
+            cmp = [compare(x, y) for x, y in zip(got, want)]
+            errs = dict(zip(("a", "v", "t", "w", "tau"), (c[0] for c in cmp)))
+            del ak, ap, got, want
+            work = torch.empty_like(a0)
+            copy_ms = time_ms(lambda: work.copy_(a0), 5)
+            passes = sum(float(nh) * (nh - k0 - j - 1) for j in range(BLOCK))
+            chain = max(-(-(nh - k0) // 32) + 5, -(-nh // g_hess) + g_hess) \
+                + 2 * BLOCK
+            hess_rows[nh, k0] = dict(
+                shape=[nh, nh, BLOCK], k=k0, rel_err=max(errs.values()),
+                rel_errs=errs, grid=g_hess, chain=chain,
+                max_abs_err=max(c[1] for c in cmp),
+                tol=tolerance(dtype, chain),
+                ms=time_ms(lambda: panel_hessenberg.hessenberg_panel(
+                    work.copy_(a0), k0, BLOCK), 3) - copy_ms,
+                plain_ms=time_ms(
+                    lambda: panel_hessenberg.hessenberg_panel_plain(
+                        work.copy_(a0), k0, BLOCK), 1) - copy_ms,
+                library_ms=None,
+                bound=bound(2.0 * passes + 8.0 * nh * BLOCK * BLOCK,
+                            (streamed(passes, nh * (nh - k0))
+                             + 4 * nh * BLOCK + BLOCK * BLOCK
+                             + BLOCK) * size))
+            check(hess_rows[nh, k0]["rel_err"] <= hess_rows[nh, k0]["tol"],
+                  f"hessenberg_panel {dtype} n={nh} k={k0}: kernel vs plain "
+                  f"rel err {hess_rows[nh, k0]['rel_err']}")
+            del a0, work
+        res["hessenberg_panel"] = {**hess_rows[N, 0],
+                                   "k_half": hess_rows[N, N // 2],
+                                   "n_rtm": hess_rows[RTM_N, 0]}
 
         for name, r in res.items():
             check(r["rel_err"] <= r["tol"],
@@ -911,17 +987,147 @@ def main() -> int:
         check(counts_piv[name] > 0, f"kernel {name} was not launched on the "
               "gels(pivot=True) path")
     counts = {k: counts[k] + counts_piv[k] for k in counts}
+
+    # ---- 8. gehrd: Hessenberg reduction, A = Q·H·Qᵀ ------------------------
+    def fro(x):
+        return float(x.double().norm())
+
+    hess_flops = 10.0 * N ** 3 / 3.0
+    ops.reset_launches()
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+        a = torch.randn(N, N, generator=gen, device=dev, dtype=dtype)
+        eps = torch.finfo(dtype).eps
+        before = panel_hessenberg.hessenberg_panel.launches
+        sync()
+        t0 = time.perf_counter()
+        fac = gehrd(a, BLOCK)
+        sync()
+        t1 = time.perf_counter()
+        panels = panel_hessenberg.hessenberg_panel.launches - before
+        check(panels == npanels, f"gehrd {dtype}: {panels} panel launches, "
+              f"expected {npanels}")
+        check(not bool(torch.tril(fac.h, -2).any()),
+              f"gehrd {dtype}: H is not zero below the first subdiagonal")
+        q = fac.q()
+        sync()
+        t2 = time.perf_counter()
+        eye = torch.eye(N, dtype=torch.float64, device=dev)
+        orth = fro(q.double().mT @ q.double() - eye) / (N * eps)
+        del q, eye
+        sync()
+        t3 = time.perf_counter()
+        rec = fac.reconstruct()
+        sync()
+        t4 = time.perf_counter()
+        resid = fro(a - rec) / (N * eps * fro(a))
+        del rec
+        check(orth < RESIDUAL_LIMIT, f"gehrd {dtype}: ‖QᵀQ − I‖/(n·eps) "
+              f"{orth}")
+        check(resid < RESIDUAL_LIMIT, f"gehrd {dtype}: ‖A − QHQᵀ‖/"
+              f"(n·eps·‖A‖) {resid}")
+        emit({"phase": "gehrd", "dtype": str(dtype), "n": N, "block": BLOCK,
+              "variant": "mtb", "factor_ms": (t1 - t0) * 1e3,
+              "factor_gflops": hess_flops / (t1 - t0) / 1e9,
+              "q_ms": (t2 - t1) * 1e3, "reconstruct_ms": (t4 - t3) * 1e3,
+              "orthogonality": orth, "scaled_residual": resid,
+              "panel_launches": panels})
+        del fac
+        emit_trace("gehrd", "mtb", dtype, lambda: gehrd(a, BLOCK))
+
+        # rtm at a smaller n (the matrix stays in L2 in float64), bitwise
+        a2 = a[:RTM_N, :RTM_N]
+        f_mtb = gehrd(a2, BLOCK)
+        sync()
+        t0 = time.perf_counter()
+        f_rtm = gehrd(a2, BLOCK, variant="rtm")
+        sync()
+        t1 = time.perf_counter()
+        check(same(f_rtm, f_mtb, ("packed", "taus")),
+              f"gehrd rtm {dtype}: reduction differs from mtb's")
+        resid = fro(a2 - f_rtm.reconstruct()) / (RTM_N * eps * fro(a2))
+        check(resid < RESIDUAL_LIMIT, f"gehrd rtm {dtype}: residual {resid}")
+        emit({"phase": "gehrd", "dtype": str(dtype), "n": RTM_N,
+              "block": BLOCK, "variant": "rtm", "factor_ms": (t1 - t0) * 1e3,
+              "scaled_residual": resid, "bitwise_equal_to_mtb": True})
+        del a, a2, f_mtb, f_rtm
+
+    # the spectrum of a symmetric input (float64): H is similar to A, so its
+    # eigenvalues are real and A's
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    g = torch.randn(EIG_N, EIG_N, generator=gen, device=dev,
+                    dtype=torch.float64)
+    sym = (g + g.mT) / 2
+    ev = gehrd(sym, BLOCK).eigvals()
+    ev_a = torch.linalg.eigvalsh(sym)
+    scale = max(float(ev_a.abs().max()), 1.0)
+    imag = float(ev.imag.abs().max())
+    real_err = float((torch.sort(ev.real).values - ev_a).abs().max())
+    check(imag < 1e-8 * EIG_N, f"gehrd eigvals: imaginary part {imag}")
+    check(real_err < 1e-8 * EIG_N * scale,
+          f"gehrd eigvals: {real_err} from eigvalsh")
+    emit({"phase": "gehrd_eigvals", "dtype": "torch.float64", "n": EIG_N,
+          "eigvals_device": str(ev.device), "max_imag": imag,
+          "max_real_err": real_err, "limit": 1e-8 * EIG_N * scale})
+    del g, sym, ev, ev_a
+    counts_hess = ops.launches()
+    for name in ("gemm_accum", "hessenberg_panel", "larft"):
+        check(counts_hess[name] > 0, f"kernel {name} was not launched on the "
+              "gehrd path")
+    counts = {k: counts[k] + counts_hess[k] for k in counts}
+
+    # ---- 9. gecon and getri on the LU factors ------------------------------
+    ops.reset_launches()
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+        a = torch.randn(COND_N, COND_N, generator=gen, device=dev,
+                        dtype=dtype)
+        a64 = a.double()
+        eps = torch.finfo(dtype).eps
+        exact = 1.0 / float(a64.abs().sum(0).max()
+                            * torch.linalg.inv(a64).abs().sum(0).max())
+        sync()
+        t0 = time.perf_counter()
+        est = float(gecon(a, BLOCK, variant="la"))
+        t1 = time.perf_counter()
+        # Hager's estimate of ‖A⁻¹‖₁ is a lower bound, so est ≥ exact, up to
+        # the rounding of the working precision's solves (κ₁·eps)
+        slack = max(1e-6, eps / exact)
+        ratio = est / exact
+        check(1.0 <= ratio * (1.0 + slack) and ratio <= 10.0,
+              f"gecon {dtype}: estimate / exact = {ratio}")
+        sync()
+        t2 = time.perf_counter()
+        x = getri(a, BLOCK)
+        sync()
+        t3 = time.perf_counter()
+        eye = torch.eye(COND_N, dtype=torch.float64, device=dev)
+        resid = fro(a64 @ x.double() - eye) / (COND_N * eps * fro(a)
+                                                * fro(x))
+        check(resid < RESIDUAL_LIMIT, f"getri {dtype}: residual {resid}")
+        emit({"phase": "gecon_getri", "dtype": str(dtype), "n": COND_N,
+              "block": BLOCK, "variant": "la", "rcond_estimate": est,
+              "rcond_exact": exact, "ratio": ratio, "slack": slack,
+              "gecon_ms": (t1 - t0) * 1e3, "getri_ms": (t3 - t2) * 1e3,
+              "getri_scaled_residual": resid})
+        del a, a64, x, eye
+    counts_cond = ops.launches()
+    for name in ("gemm_accum", "trsm", "lu_panel"):
+        check(counts_cond[name] > 0, f"kernel {name} was not launched on the "
+              "gecon/getri path")
+    counts = {k: counts[k] + counts_cond[k] for k in counts}
     for name, count in counts.items():
         check(count > 0, f"kernel {name} was not launched on the main paths")
 
-    # ---- 8. report ---------------------------------------------------------
+    # ---- 10. report --------------------------------------------------------
     sources = {"gemm_accum": "gemm.cu", "trsm": "trsm.cu",
                "lu_panel": "panel_lu.cu", "lu_solve_small": "trsm.cu",
                "trsm_right_lower_t": "trsm.cu",
                "fused_lu_panel_update": "fused_pu.cu",
                "fused_cholesky_panel_update": "fused_pu.cu",
                "qr_panel": "panel_qr.cu", "larft": "panel_qr.cu",
-               "qrcp_panel": "panel_qrcp.cu"}
+               "qrcp_panel": "panel_qrcp.cu",
+               "hessenberg_panel": "panel_hessenberg.cu"}
     replaces = {"gemm_accum": "src/repro/kernels/blis_gemm.py:126",
                 "trsm": "src/repro/kernels/trsm.py:42",
                 "lu_panel": "src/repro/kernels/panel_lu.py:34",
@@ -933,15 +1139,16 @@ def main() -> int:
                     "src/repro/kernels/fused_panel_update.py:194",
                 "qr_panel": "src/repro/kernels/panel_qr.py:31",
                 "larft": "src/repro/kernels/panel_qr.py:31",
-                "qrcp_panel": "src/repro/kernels/panel_qrcp.py:43"}
+                "qrcp_panel": "src/repro/kernels/panel_qrcp.py:43",
+                "hessenberg_panel": "src/repro/kernels/panel_hessenberg.py:39"}
 
     def numbers(r):
         out = {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
-        for key in ("composed_ms", "window"):
+        for key in ("composed_ms", "window", "k_half", "n_rtm"):
             if key in r:
-                out[key] = numbers(r[key]) if key == "window" else r[key]
+                out[key] = r[key] if key == "composed_ms" else numbers(r[key])
         return out
 
     def at_shape(key):   # float64 at the top level, float32 beside it

@@ -1,2 +1,3 @@
 """Factorization core of the port: blocking, backend vtable, the look-ahead
-engine, LU and the variant registry."""
+engine, the DMFs (LU, Cholesky, QR, QRCP, Hessenberg) and the variant
+registry."""

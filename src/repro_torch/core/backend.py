@@ -11,6 +11,11 @@ implementations:
   hand-written CUDA kernels; on CPU tensors their plain PyTorch versions.
   It is the default of every port entry point.
 
+One rule holds for every factorization: its panel kernel (and the
+``larft`` kernel a panel's T comes from) is taken only from the backend's
+``panel_fns``, so under ``"torch"`` the whole factorization runs as plain
+PyTorch ops, on a CUDA tensor too.
+
 In-place contract.  The reference is functional (``c - gemm(a, b)`` and
 ``.at[].set``); the port updates views of one working copy of the matrix
 in place.  ``update(c, a, b)`` overwrites the view ``c`` with

@@ -1,7 +1,7 @@
 """Variant registry: scheduling variants by name.
 
 The port of :mod:`repro.core.lookahead`, for the DMFs ported so far (LU,
-Cholesky, QR, global QRCP and windowed ``qrcp_local``):
+Cholesky, QR, global QRCP, windowed ``qrcp_local`` and Hessenberg):
 
     fn = get_variant("lu", "la")          # -> lu_lookahead
     fn = get_variant("lu", "la2")         # -> lu_lookahead with depth=2
@@ -10,18 +10,19 @@ Cholesky, QR, global QRCP and windowed ``qrcp_local``):
 ``"la<d>"`` / ``"la_mb<d>"`` resolve the look-ahead driver with ``depth=d``
 (d panels in flight); ``"la"`` ≡ ``"la1"``.  ``la_mb`` plugs the fused
 panel-update kernel into the look-ahead driver; a DMF without one (QR,
-``qrcp_local``) gets its ``la`` driver.  Global QRCP has no look-ahead
-variant by policy (:data:`LOOKAHEAD_EXCLUDED`): ``"la"``/``"la_mb"``
-raise ``KeyError`` with the reason.  The reference's ``tuned``
-(autotuner cache) and ``tiled`` (tile-DAG) variants are not ported yet and
-raise ``KeyError`` naming the ROADMAP item that brings them.
+``qrcp_local``) gets its ``la`` driver.  Global QRCP and Hessenberg have
+no look-ahead variant by policy (:data:`LOOKAHEAD_EXCLUDED`):
+``"la"``/``"la<d>"``/``"la_mb"`` raise ``KeyError`` with the reason.  The
+reference's ``tuned`` (autotuner cache) and ``tiled`` (tile-DAG) variants
+are not ported yet and raise ``KeyError`` naming the ROADMAP item that
+brings them.
 """
 from __future__ import annotations
 
 import re
 from typing import Callable, Dict, Tuple
 
-from repro_torch.core import cholesky, lu, qr, qrcp
+from repro_torch.core import cholesky, hessenberg, lu, qr, qrcp
 from repro_torch.core.backend import resolve_backend
 from repro_torch.core.pipeline import supports_depth
 
@@ -51,12 +52,18 @@ _REGISTRY: Dict[str, Dict[str, Callable]] = {
         "rtm": qrcp.qrcp_local_tiled,
         "la": qrcp.qrcp_local_lookahead,
     },
+    # no "la" row by policy (LOOKAHEAD_EXCLUDED), not by omission
+    "hessenberg": {
+        "mtb": hessenberg.hessenberg_blocked,
+        "rtm": hessenberg.hessenberg_tiled,
+    },
 }
 
 #: Why a DMF has no look-ahead variant: its panel reads trailing data beyond
 #: the panel columns (:attr:`StepOps.la_unsafe`).
 LOOKAHEAD_EXCLUDED: Dict[str, str] = {
     "qrcp": qrcp.QRCP_OPS.la_unsafe,
+    "hessenberg": hessenberg.HESSENBERG_OPS.la_unsafe,
 }
 
 #: Reference variants that this port does not resolve yet, and why.

@@ -27,9 +27,9 @@ PF(k+1) does not yet overlap TU_k^R on the device.
 
 Row exhaustion.  A DMF may declare ``stop``/``can_factor``/``width``
 (QR and QRCP on wide ``m < n`` inputs end their traversal once the rows
-are exhausted) and ``la_unsafe`` (global QRCP: its panel reads trailing
-data, so ``la`` would compute another factorization; ``factorize``
-refuses it with the reason).
+are exhausted) and ``la_unsafe`` (global QRCP and Hessenberg: the panel
+reads trailing data, so ``la`` would compute another factorization;
+``factorize`` refuses it with the reason).
 
 Not ported yet: the hooks of the two-sided DMFs (Gauss–Jordan's
 ``update_left``/``update_all``/``commit``), and the ``mesh=`` engine.

@@ -36,7 +36,8 @@ import torch
 from repro_torch.core import pipeline
 from repro_torch.core.lu import _moved_rows
 from repro_torch.core.pipeline import StepOps
-from repro_torch.core.qr import Panel, apply_qt_blocked, build_t_matrix
+from repro_torch.core.qr import (Panel, apply_qt_blocked, build_t_matrix,
+                                 larft_plain)
 
 __all__ = ["qrcp_blocked", "qrcp_tiled", "QRCP_OPS",
            "qrcp_local_blocked", "qrcp_local_tiled", "qrcp_local_lookahead",
@@ -44,9 +45,11 @@ __all__ = ["qrcp_blocked", "qrcp_tiled", "QRCP_OPS",
 
 
 def _default_panel(block, steps):
-    from repro_torch.kernels.panel_qrcp import qrcp_panel
+    # Without a hook (``backend="torch"``) the panel runs as plain ops; the
+    # ``"cuda"`` backend supplies the kernel through ``panel_fns``.
+    from repro_torch.kernels.panel_qrcp import qrcp_panel_plain
 
-    return qrcp_panel(block, steps)
+    return qrcp_panel_plain(block, steps)
 
 
 def _init(a):
@@ -158,8 +161,10 @@ def _factor_local(state, st, backend, panel_fn):
     taus[k : k + steps] = tau
     moved = _moved_rows(piv, 0, a.device)
     _replay_pivots(jpvt[k : k + bk], moved)
-    return state, _QRCPLocalCtx(Panel.of(v, build_t_matrix(v, tau)), moved,
-                                k, bk)
+    # T by the larft kernel where the backend supplies the panel kernel,
+    # else as plain ops (``backend="torch"``).
+    t = (larft_plain if panel_fn is None else build_t_matrix)(v, tau)
+    return state, _QRCPLocalCtx(Panel.of(v, t), moved, k, bk)
 
 
 def _swap_local(state, ctx, st, backend):

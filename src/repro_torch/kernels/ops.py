@@ -12,8 +12,9 @@ The port of :mod:`repro.kernels.ops`'s ``PALLAS_BACKEND``:
   every other case goes to the library solve, as the reference sends it
   to ``trsm_jnp``;
 * ``panel_fns`` = :data:`PANEL_KERNELS` → the GETF2 panel kernel (LU),
-  the GEQR2+LARFT panel kernel (QR) and the xLAQPS panel kernel (global
-  QRCP and ``qrcp_local``) for every scheduling variant;
+  the GEQR2+LARFT panel kernel (QR), the xLAQPS panel kernel (global
+  QRCP and ``qrcp_local``) and the xLAHR2 panel kernel (Hessenberg) for
+  every scheduling variant;
 * ``larft`` → the LARFT entry of the QR panel kernel, which
   :func:`repro_torch.core.qr.build_t_matrix` takes on CUDA tensors;
 * ``fused_pu`` = :data:`FUSED_PU` → the fused panel-update kernels of
@@ -30,6 +31,7 @@ from __future__ import annotations
 from repro_torch.core.backend import Backend, trsm_torch
 from repro_torch.kernels import blis_gemm as _bg
 from repro_torch.kernels import fused_panel_update as _fpu
+from repro_torch.kernels import panel_hessenberg as _phess
 from repro_torch.kernels import panel_lu as _plu
 from repro_torch.kernels import panel_qr as _pqr
 from repro_torch.kernels import panel_qrcp as _pqrcp
@@ -37,7 +39,8 @@ from repro_torch.kernels import trsm as _tr
 
 __all__ = ["CUDA_BACKEND", "PANEL_KERNELS", "FUSED_PU", "KERNELS",
            "SMALL_SOLVE_MAX_N", "gemm", "update", "trsm", "lu_panel",
-           "qr_panel", "larft", "qrcp_panel", "lu_solve_small",
+           "qr_panel", "larft", "qrcp_panel", "hessenberg_panel",
+           "lu_solve_small",
            "fused_lu_panel_update", "fused_cholesky_panel_update",
            "launches", "reset_launches"]
 
@@ -46,6 +49,7 @@ lu_panel = _plu.lu_panel
 qr_panel = _pqr.qr_panel
 larft = _pqr.larft
 qrcp_panel = _pqrcp.qrcp_panel
+hessenberg_panel = _phess.hessenberg_panel
 lu_solve_small = _tr.lu_solve_small
 fused_lu_panel_update = _fpu.fused_lu_panel_update
 fused_cholesky_panel_update = _fpu.fused_cholesky_panel_update
@@ -72,7 +76,7 @@ def trsm(t, b, *, side="left", lower=True, trans=False, unit_diagonal=False,
 
 
 PANEL_KERNELS = {"lu": lu_panel, "qr": qr_panel, "qrcp": qrcp_panel,
-                 "qrcp_local": qrcp_panel}
+                 "qrcp_local": qrcp_panel, "hessenberg": hessenberg_panel}
 
 #: The fused panel updates that ``get_variant(dmf, "la_mb")`` plugs in; the
 #: engine fuses PU(k+1) and issues deeper narrow updates as regular ones.
@@ -94,6 +98,7 @@ KERNELS = {
     "qr_panel": _pqr.qr_panel,
     "larft": _pqr.larft,
     "qrcp_panel": _pqrcp.qrcp_panel,
+    "hessenberg_panel": _phess.hessenberg_panel,
     "lu_solve_small": _tr.lu_solve_small,
     "trsm_right_lower_t": _tr.trsm_right_lower_t,
     "fused_lu_panel_update": _fpu.fused_lu_panel_update,

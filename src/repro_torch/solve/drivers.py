@@ -1,7 +1,10 @@
 """LAPACK-style drivers built on the DMF layer: ``lu_factor``, ``gesv``,
-``cholesky_factor``, ``posv``, ``qr_factor``, ``geqp3`` and ``gels``.
+``cholesky_factor``, ``posv``, ``qr_factor``, ``geqp3``, ``gels``,
+``gehrd``, ``getri`` and ``gecon``.
 
-The port of :mod:`repro.solve.drivers` for LU, Cholesky, QR and QRCP.  All take
+The port of :mod:`repro.solve.drivers` for LU, Cholesky, QR, QRCP and
+Hessenberg (``ldlt_factor`` and ``getri(method="gj")`` wait for LDLᵀ and
+Gauss–Jordan, ROADMAP Queue 1 item 11).  All take
 ``variant=`` (``mtb``/``rtm``/``la``/``la<d>``/``la_mb``, resolved by
 :func:`repro_torch.core.lookahead.get_variant`), ``depth=``, ``backend=``
 (``"cuda"`` — the hand-written kernels, the default — or ``"torch"`` — the
@@ -14,15 +17,17 @@ from __future__ import annotations
 
 import functools
 
+import torch
+
 from repro_torch.core.backend import resolve_backend
 from repro_torch.core.blocking import BlockSpec, normalize_block
 from repro_torch.core.lookahead import deepen, get_variant
 from repro_torch.obs import tracer as _obs
-from repro_torch.solve.factors import (CholeskyFactors, LUFactors,
-                                       QRCPFactors, QRFactors)
+from repro_torch.solve.factors import (CholeskyFactors, HessenbergFactors,
+                                       LUFactors, QRCPFactors, QRFactors)
 
 __all__ = ["lu_factor", "gesv", "cholesky_factor", "posv", "qr_factor",
-           "geqp3", "gels"]
+           "geqp3", "gels", "gehrd", "getri", "gecon"]
 
 _NO_MESH = ("mesh= (the distributed engine) is not ported yet: ROADMAP "
             "Queue 1 item 17")
@@ -161,3 +166,62 @@ def gels(a, b, block: BlockSpec = 128, *, variant: str = "la",
                          "the column-pivoted factorization)")
     return qr_factor(a, block, variant=variant, depth=depth, backend=backend,
                      device=device).solve(b)
+
+
+@_traced
+def gehrd(a, block: BlockSpec = 128, *, variant: str = "mtb",
+          backend="cuda", device=None) -> HessenbergFactors:
+    """Hessenberg reduction (GEHRD): ``A = Q·H·Qᵀ``.
+
+    ``variant`` is ``mtb`` (the default) or ``rtm``: the panel reads the
+    whole trailing matrix, so no look-ahead variant exists (DESIGN.md §11).
+    """
+    be = resolve_backend(backend)
+    packed, taus = get_variant("hessenberg", variant)(a, block, backend=be,
+                                                      device=device)
+    return HessenbergFactors(packed=packed, taus=taus,
+                             block=normalize_block(block), backend=be)
+
+
+@_traced
+def getri(a, block: BlockSpec = 128, *, variant: str = "la", depth: int = 1,
+          backend="cuda", method: str = "lu", device=None):
+    """Matrix inverse: ``method="lu"`` factors with partial pivoting, then
+    solves for the n columns of I (GETRF + GETRI semantics)."""
+    if method == "lu":
+        return lu_factor(a, block, variant=variant, depth=depth,
+                         backend=backend, device=device).inverse()
+    if method == "gj":
+        raise NotImplementedError(
+            "getri(method='gj') needs the Gauss-Jordan DMF, which is not "
+            "ported yet: ROADMAP Queue 1 item 11")
+    raise ValueError(f"method must be 'lu' or 'gj', got {method!r}")
+
+
+@_traced
+def gecon(a, block: BlockSpec = 128, *, variant: str = "la", depth: int = 1,
+          backend="cuda", iters: int = 5, device=None):
+    """Reciprocal 1-norm condition estimate ``1 / (‖A‖₁·est(‖A⁻¹‖₁))``.
+
+    Hager–Higham power iteration on the 1-norm (LAPACK's LACON): each step
+    solves once with A and once with Aᵀ on the same LU factors.  The
+    estimate stays on the device as a 0-d tensor; nothing is read back to
+    the host.
+    """
+    facs = lu_factor(a, block, variant=variant, depth=depth, backend=backend,
+                     device=device)
+    n = facs.n
+    lu = facs.lu
+    anorm = torch.as_tensor(a).to(device=lu.device, dtype=lu.dtype) \
+        .abs().sum(0).max()
+    x = torch.full((n,), 1.0 / n, dtype=lu.dtype, device=lu.device)
+    est = torch.zeros((), dtype=lu.dtype, device=lu.device)
+    for it in range(iters):
+        y = facs.solve(x)
+        est = y.abs().sum()
+        if it == iters - 1:
+            break   # est is final; the direction update would be dead work
+        z = facs.solve(torch.sign(y), trans=True)
+        x = torch.zeros_like(x)
+        x[torch.argmax(z.abs())] = 1.0
+    return 1.0 / (anorm * est)

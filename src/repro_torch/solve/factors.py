@@ -2,11 +2,13 @@
 
 The port of :class:`repro.solve.factors.LUFactors`,
 :class:`~repro.solve.factors.CholeskyFactors`,
-:class:`~repro.solve.factors.QRFactors` and
-:class:`~repro.solve.factors.QRCPFactors`: the packed GETRF / POTRF /
-GEQRF / GEQP3 output with the block size and backend it was built with, and the
-operations LAPACK derives from it (``solve``, transposed ``solve``,
-``logdet``, ``inverse``).
+:class:`~repro.solve.factors.QRFactors`,
+:class:`~repro.solve.factors.QRCPFactors` and
+:class:`~repro.solve.factors.HessenbergFactors`: the packed GETRF / POTRF /
+GEQRF / GEQP3 / GEHRD output with the block size and backend it was built
+with, and the operations LAPACK derives from it (``solve``, transposed
+``solve``, ``logdet``, ``inverse``; for GEHRD ``h``, ``q``,
+``reconstruct``, ``similarity``, ``eigvals``).
 
 Carrying a factored system across the two packages: this system has no
 weights, so what moves between the reference and the port is a factored
@@ -15,8 +17,9 @@ matrix.  :meth:`LUFactors.from_numpy` takes the reference's ``lu`` and
 gives back ``(lu, ipiv, perm)``, which the reference's
 ``LUFactors.from_packed(lu, ipiv)`` accepts.  :class:`CholeskyFactors`
 carries its lower factor ``l`` the same way, :class:`QRFactors` its
-``(packed, taus)`` and :class:`QRCPFactors` its ``(packed, taus, jpvt)``.  So a system factored by one
-package can be solved by the other.
+``(packed, taus)``, :class:`QRCPFactors` its ``(packed, taus, jpvt)``
+and :class:`HessenbergFactors` its ``(packed, taus)``.  So a system
+factored by one package can be solved, or reduced further, by the other.
 """
 from __future__ import annotations
 
@@ -27,15 +30,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.backend import Backend, resolve_backend
-from repro_torch.core.blocking import BlockSpec
-from repro_torch.core.blocking import panel_steps
+from repro_torch.core.blocking import BlockSpec, panel_steps
+from repro_torch.core.hessenberg import form_q_hess, unpack_hessenberg
 from repro_torch.core.lu import permutation_from_pivots
 from repro_torch.core.qr import Panel, _pad_tau, apply_qt_blocked, \
     build_t_matrix, unpack_v
 from repro_torch.device import resolve_device, working_copy
 from repro_torch.solve.triangular import lu_solve_packed, trsm_blocked
 
-__all__ = ["LUFactors", "CholeskyFactors", "QRFactors", "QRCPFactors"]
+__all__ = ["LUFactors", "CholeskyFactors", "QRFactors", "QRCPFactors",
+           "HessenbergFactors"]
 
 
 def _rhs(b, like: torch.Tensor, n: int) -> tuple[torch.Tensor, bool]:
@@ -331,3 +335,66 @@ class QRCPFactors:
         x = torch.empty_like(y)
         x[self.jpvt.long()] = y
         return x[:, 0] if was_vec else x
+
+
+@dataclasses.dataclass(frozen=True)
+class HessenbergFactors:
+    """GEHRD output: the similarity transform ``A = Q·H·Qᵀ``.
+
+    ``packed`` carries H on/above the first subdiagonal and the reflectors
+    below it; :attr:`h` and :meth:`q` recover the ``(H, Q)`` pair, and
+    :meth:`eigvals` runs the eigenvalue stage on the reduced form (the same
+    spectrum as A).
+    """
+
+    packed: torch.Tensor
+    taus: torch.Tensor
+    backend: Backend
+    block: BlockSpec = 128
+
+    @classmethod
+    def from_numpy(cls, packed, taus, *, block: BlockSpec = 128,
+                   device=None,
+                   backend: Union[str, Backend] = "cuda") -> "HessenbergFactors":
+        """A reduction from NumPy arrays (e.g. the reference's), on
+        ``device`` (None = the GPU)."""
+        dev = resolve_device(device)
+        return cls(packed=working_copy(packed, dev),
+                   taus=working_copy(taus, dev), block=block,
+                   backend=resolve_backend(backend))
+
+    def to_numpy(self) -> tuple[np.ndarray, np.ndarray]:
+        """``(packed, taus)`` as NumPy arrays."""
+        return self.packed.cpu().numpy(), self.taus.cpu().numpy()
+
+    @property
+    def n(self) -> int:
+        return self.packed.shape[0]
+
+    @property
+    def h(self) -> torch.Tensor:
+        """H — exactly zero below the first subdiagonal."""
+        return unpack_hessenberg(self.packed)
+
+    def q(self) -> torch.Tensor:
+        """Q explicitly (ORGHR analogue)."""
+        return form_q_hess(self.packed, self.taus, self.block,
+                           backend=self.backend)
+
+    def reconstruct(self) -> torch.Tensor:
+        """``Q·H·Qᵀ`` — A to roundoff."""
+        q = self.q()
+        return self.backend.gemm(self.backend.gemm(q, self.h),
+                                 q.mT.contiguous())
+
+    def similarity(self, b) -> torch.Tensor:
+        """``Qᵀ·B·Q`` — another matrix carried into the reduced basis."""
+        q = self.q()
+        b = torch.as_tensor(b).to(device=q.device, dtype=q.dtype)
+        return self.backend.gemm(self.backend.gemm(q.mT.contiguous(), b), q)
+
+    def eigvals(self) -> torch.Tensor:
+        """Eigenvalues of A (complex), from the Hessenberg form, on the
+        device that holds it; raises where the installed PyTorch has no
+        eigenvalue solver for that device."""
+        return torch.linalg.eigvals(self.h)

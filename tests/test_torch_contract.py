@@ -18,9 +18,10 @@ import torch
 
 from repro_torch.core import cholesky, lookahead, lu
 from repro_torch.kernels import _build
-from repro_torch.solve import (CholeskyFactors, LUFactors, QRCPFactors,
-                               QRFactors, cholesky_factor, geqp3, gels, gesv,
-                               lu_factor, posv, qr_factor)
+from repro_torch.solve import (CholeskyFactors, HessenbergFactors,
+                               LUFactors, QRCPFactors, QRFactors,
+                               cholesky_factor, gecon, gehrd, geqp3, gels,
+                               gesv, getri, lu_factor, posv, qr_factor)
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 PORT = SRC / "repro_torch"
@@ -50,6 +51,8 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
 def test_no_source_file_imports_jax_or_the_reference():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 10
+    assert {PORT / "core" / "hessenberg.py",
+            PORT / "kernels" / "panel_hessenberg.py"} <= set(files)
     offenders = [str(f.relative_to(SRC)) for f in files
                  if _FORBIDDEN.search(f.read_text())]
     assert offenders == []
@@ -61,7 +64,8 @@ def test_no_source_file_imports_jax_or_the_reference():
                                    "chol_from_numpy", "cholesky_blocked",
                                    "qr_factor", "gels", "gels_pivot",
                                    "geqp3", "qr_from_numpy",
-                                   "qrcp_from_numpy"])
+                                   "qrcp_from_numpy", "gehrd", "gecon",
+                                   "getri", "hessenberg_from_numpy"])
 def test_entry_points_default_to_the_gpu_and_raise_without_one(
         monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -85,6 +89,11 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(
         "qr_from_numpy": lambda: QRFactors.from_numpy(a, np.ones(4), block=2),
         "qrcp_from_numpy": lambda: QRCPFactors.from_numpy(
             a, np.ones(4), np.arange(4), block=2),
+        "gehrd": lambda: gehrd(a, 2),
+        "gecon": lambda: gecon(a, 2),
+        "getri": lambda: getri(a, 2),
+        "hessenberg_from_numpy": lambda: HessenbergFactors.from_numpy(
+            a, np.ones(4), block=2),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -99,13 +108,14 @@ def test_explicit_cpu_runs_and_returns_cpu_tensors(driver):
 
 def test_every_kernel_source_is_built_and_counted():
     assert set(_build.sources()) == {"gemm", "trsm", "panel_lu", "fused_pu",
-                                     "panel_qr", "panel_qrcp"}
+                                     "panel_qr", "panel_qrcp",
+                                     "panel_hessenberg"}
     from repro_torch.kernels import ops
     assert set(ops.KERNELS) == {"gemm_accum", "trsm", "lu_panel",
                                 "lu_solve_small", "trsm_right_lower_t",
                                 "fused_lu_panel_update",
                                 "fused_cholesky_panel_update", "qr_panel",
-                                "larft", "qrcp_panel"}
+                                "larft", "qrcp_panel", "hessenberg_panel"}
 
 
 def test_ptxas_summary_parses_a_verbose_log():

@@ -7,10 +7,11 @@ order, so they are held to 4·max(k,8)·eps relative, k being the number of
 terms summed per element (the panel bitwise; the fused panel updates
 bitwise against the kernels they replace; the QR and QRCP panels, whose
 reductions group differently from their plain versions, within
-4·max(m,nb,8)·eps, pivots equal);
+4·max(m,nb,8)·eps, pivots equal; the Hessenberg panel within 4·c·eps, c
+the longest chain of terms it sums for one element);
 whole solves keep the reference's 200·max(m,n,8)·eps, and every schedule
-of LU, Cholesky, QR and ``qrcp_local`` gives bitwise the factors of
-``mtb``.  Marked ``cuda``;
+of LU, Cholesky, QR, ``qrcp_local`` and Hessenberg gives bitwise the
+factors of ``mtb``.  Marked ``cuda``;
 each test skips (inside the ``card`` fixture, never at import or
 collection) when no GPU is present.  On a machine with one:
 
@@ -22,11 +23,11 @@ import torch
 
 from repro_torch.core.cholesky import cholesky_panel
 from repro_torch.core.qr import unpack_v
-from repro_torch.kernels import blis_gemm, ops, panel_lu, panel_qr, \
-    panel_qrcp, trsm
+from repro_torch.kernels import blis_gemm, ops, panel_hessenberg, \
+    panel_lu, panel_qr, panel_qrcp, trsm
 from repro_torch.kernels import fused_panel_update as fpu
-from repro_torch.solve import cholesky_factor, geqp3, gels, gesv, \
-    lu_factor, posv, qr_factor
+from repro_torch.solve import cholesky_factor, gecon, gehrd, geqp3, gels, \
+    gesv, getri, lu_factor, posv, qr_factor
 
 pytestmark = pytest.mark.cuda
 
@@ -392,3 +393,84 @@ def test_gels_on_the_card(card, dtype, pivot, local):
     assert counts["larft"] > 0          # the solve's Qᵀ apply
     ref = torch.linalg.lstsq(a.double().cpu(), rhs.double().cpu()).solution
     assert _rel(x.cpu(), ref) < _tol(dtype, m, n)
+
+
+def _hessenberg_chain(n, k, bk, grid):
+    """The longest chain of terms the Hessenberg panel kernel sums for one
+    element: a GEMV row (a lane's share of the n − k columns, then five
+    shuffle steps) or a cross-block sum (a block's rows, then the G
+    partials), followed by the 2·bk terms of the right and left updates."""
+    return max(-(-(n - k) // 32) + 5, -(-n // grid) + grid) + 2 * bk
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", [0, 200, 512 - 128])
+@pytest.mark.parametrize("bk", [128, 40])
+def test_hessenberg_panel_matches_plain(card, dtype, k, bk):
+    n = 512
+    src = _randn((n, n + 9), dtype, card, 37)
+    a = src[:, 9:]                         # a strided view: ld = n + 9
+    orig, ref = a.clone(), a.clone()
+    want = panel_hessenberg.hessenberg_panel_plain(ref, k, bk)
+    before = panel_hessenberg.hessenberg_panel.launches
+    got = panel_hessenberg.hessenberg_panel(a, k, bk)
+    assert panel_hessenberg.hessenberg_panel.launches == before + 1
+    assert got[0].data_ptr() == a.data_ptr()
+    g = panel_hessenberg._grid(
+        "f64" if dtype == torch.float64 else "f32", n, bk)
+    tol = _kernel_tol(dtype, _hessenberg_chain(n, k, bk, g))
+    for x, y in zip(got, want):
+        assert _rel(x, y) < tol
+    if k + bk >= n - 1:                    # the last two columns: tau = 0
+        assert float(got[4][n - 2 - k]) == 0.0
+    again = panel_hessenberg.hessenberg_panel(orig, k, bk)   # ld = n
+    assert all(torch.equal(x, y) for x, y in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gehrd_schedules_bitwise(card, dtype):
+    n, b = 300, 32
+    a = _randn((n, n), dtype, card, 38)
+    ops.reset_launches()
+    base = gehrd(a, b)
+    assert ops.launches()["hessenberg_panel"] == -(-n // b)
+    for block in (b, [32, 16]):
+        ref = gehrd(a, block)
+        fac = gehrd(a, block, variant="rtm")
+        assert torch.equal(fac.packed, ref.packed)
+        assert torch.equal(fac.taus, ref.taus)
+    assert not torch.tril(base.h, -2).any()
+    q = base.q()
+    eps = torch.finfo(dtype).eps
+    eye = torch.eye(n, dtype=torch.float64, device=card)
+    assert float((q.double().mT @ q.double() - eye).norm()) < 100 * n * eps
+    assert _rel(base.reconstruct(), a) < _tol(dtype, n, n)
+
+
+def test_torch_backend_launches_no_kernel(card):
+    a = _randn((200, 200), torch.float64, card, 40)
+    ops.reset_launches()
+    gehrd(a, 32, backend="torch")
+    geqp3(a, 32, backend="torch")
+    geqp3(a, 32, local=True, backend="torch")
+    assert not any(ops.launches().values())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gecon_and_getri_on_the_card(card, dtype):
+    n, b = 300, 32
+    a = _randn((n, n), dtype, card, 39)
+    a64 = a.double()
+    exact = 1.0 / float(a64.abs().sum(0).max()
+                        * torch.linalg.inv(a64).abs().sum(0).max())
+    ratio = float(gecon(a, b)) / exact
+    # Hager's estimate of ‖A⁻¹‖₁ is a lower bound, up to the rounding of the
+    # working precision's solves, κ₁·eps
+    slack = max(1e-6, torch.finfo(dtype).eps / exact)
+    assert 1.0 <= ratio * (1 + slack) and ratio <= 10.0
+    x = getri(a, b)
+    eye = torch.eye(n, dtype=torch.float64, device=card)
+    res = float((a64 @ x.double() - eye).norm()) / (
+        n * torch.finfo(dtype).eps * float(a64.norm())
+        * float(x.double().norm()))
+    assert res < 100.0
