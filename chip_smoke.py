@@ -51,9 +51,27 @@
    ``torch.linalg.eigvalsh``.
 9. ``gecon`` and ``getri`` at n = 2048: the condition estimate against
    the exact 1/(‖A‖₁·‖A⁻¹‖₁), and the scaled residual of the inverse.
+10. ``flash_attention`` against its plain version, bfloat16 and float32,
+    at the serving shape (B 4, 40 query heads over 10 KV heads, S 1024,
+    D 128, causal) and at one 32k sequence (prefill_32k's), each output
+    within an elementwise bound of the plain version run in float64
+    (``attn_expect``), which must also fail two planted faults (a 64-key
+    tile left out, the second half of the rows not written); with its time, the plain version's, the bound and the time of
+    ``scaled_dot_product_attention`` (a yardstick the port never calls).
+11. serving: phi3-medium-14b at full width and depth (40 layers, bfloat16,
+    seeded random weights made on the card) through
+    ``ServeEngine.generate``: batch 4, prompt 1024, 64 new tokens, greedy;
+    prefill ms, decode ms a step (p50/p99), tokens/s, peak memory, and
+    40 flash-attention launches in the prefill, none in decode.
+12. teacher-forced consistency through ``api.prefill``/``decode_step``:
+    prefill 1024 tokens of a 2048-token sequence, decode 32 more, and hold
+    the logits to one full ``api.apply`` over all 2048 (the flash kernel
+    against the plain decode attention), float32 at full width and 4
+    layers, bfloat16 at 40 layers, each within ``CONS_TOL``.
 
 Launch counts are set to 0 just before each path and read just after it;
-each kernel of a path must have launched in it.
+each kernel of a path must have launched in it (``flash_attention`` on the
+serving path, the others on the factorization paths).
 
 Each phase prints one JSON line and raises on failure (non-zero exit).
 Then come the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
@@ -63,6 +81,7 @@ non-zero before printing anything.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -79,9 +98,26 @@ SMALL_N = 128                    # one panel: the fused small solve
 EIG_N = 512                      # gehrd + eigvals of a symmetric input
 COND_N = 2048                    # gecon and getri
 SEED = 0
+ARCH = "phi3-medium-14b"         # the serving path: full width and depth
+SERVE_BATCH, PROMPT, NEW_TOKENS = 4, 1024, 64
+LONG_S = 32768                   # prefill_32k's per-sequence shape
+CONS_S, CONS_DECODE = 2048, 32   # teacher-forced decode vs the full forward
+CONS_F32_LAYERS = 4              # the float32 check's depth (full width)
+#: Relative Frobenius deviation of the teacher-forced decode logits from
+#: the full forward's.  float32: the two routes (flash kernel + M = 2048
+#: GEMMs, plain decode attention + M = 1 GEMMs) differ by summation order
+#: only, about sqrt(K)·eps = 1.6e-5 for the deepest sum (K = d_ff = 17920)
+#: per product, so 1e-4 leaves room for 4 layers while a wrong mask,
+#: position or cache slot moves the logits by O(1).  bfloat16: each of the
+#: 40 layers rounds some 8 activations to bfloat16 (2^-9 relative) at
+#: places the two routes do not share; as a random walk that is
+#: sqrt(320)·2^-9 = 3.5e-2 of the logits' scale, and the bound allows 3x.
+CONS_TOL = {"float32": 1e-4, "bfloat16": 0.1}
 #: Peaks of one H100 SXM: 67 TFLOP/s for float32 outside the tensor cores
 #: and for float64 through them (NVIDIA data sheet); 3.35 TB/s of HBM3.
 PEAK_FLOPS = 67e12
+#: bfloat16 dense through the tensor cores (NVIDIA data sheet)
+BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50e6                  # the H100's L2 cache (NVIDIA data sheet)
 RESIDUAL_LIMIT = 100.0
@@ -110,11 +146,16 @@ def main() -> int:
     from repro_torch.core.backend import no_tf32
     from repro_torch.core.cholesky import cholesky_panel, cholesky_unblocked
     from repro_torch.core import qr
-    from repro_torch.kernels import (_build, blis_gemm, ops,
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (_build, attention, blis_gemm, ops,
                                      panel_hessenberg, panel_lu, panel_qr,
                                      panel_qrcp, trsm)
     from repro_torch.kernels import fused_panel_update as fpu
+    from repro_torch.models import api
     from repro_torch.obs import tracer
+    from repro_torch.serve.engine import ServeConfig, ServeEngine
     from repro_torch.solve import (cholesky_factor, gecon, gehrd, geqp3,
                                    gesv, getri, lu_factor, qr_factor)
 
@@ -153,8 +194,8 @@ def main() -> int:
         return (float(d.norm() / max(float(ref.double().norm()), 1e-300)),
                 float(d.abs().max()))
 
-    def bound(flops: float, nbytes: float):
-        t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
+    def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS):
+        t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
         return (max(t_ops, t_bytes) * 1e3,
                 "operations" if t_ops >= t_bytes else "bytes")
 
@@ -164,6 +205,44 @@ def main() -> int:
         one read where it fits.  No L2 rate is published, so the passes
         over L2 are not charged and such a bound is a floor."""
         return passes if block * size > L2_BYTES else block
+
+    def attn_expect(q, k, v):
+        """The plain flash attention in float64 (causal) and the kernel's
+        elementwise tolerance against it.
+
+        One output is o = Σ p_j·v_j / Σ p_j with p_j = exp(s_j − m).  With
+        u = 2^-24 and rounding errors bounded as Higham and Mary's
+        probabilistic analysis does, at λ = 10 (a miss chance far below
+        1e-9 over all outputs): a score, a D-term dot product scaled, is
+        off by (λ·√D + 1)·u·a, a = scale·|q_i|·max_j|k_j| ≥ |s_j|; exp's
+        argument s_j − m by u·2a more, and expf adds 2 ulp, so every p_j is
+        off by a relative δ = u·((λ·√D + 3)·a + 4), which moves o by at
+        most 2·δ·M, M = Σ p_j·|v_j| / Σ p_j.  The two sums over Sk keys and
+        the Sk/64 tile rescalings add 2·λ·√(Sk + Sk/64)·u·M, the division
+        u·M.  bfloat16 output adds its rounding, 2^-8 of |o| + the above.
+        The bound scales with M, not with max|v|: a tile left out or a row
+        not written exceeds it, which the phase checks."""
+        h, d, hkv, sk = q.shape[1], q.shape[3], k.shape[1], k.shape[2]
+        q64, k64, v64 = q.double(), k.double(), v.double()
+        both = attention.flash_attention_plain(
+            q64, k64, torch.cat([v64, v64.abs()], dim=-1),
+            block_q=1024, block_k=1024)
+        want, mag = both[..., :d], both[..., d:]
+        kmax = k64.norm(dim=-1).amax(dim=-1).repeat_interleave(h // hkv, 1)
+        a = d ** -0.5 * q64.norm(dim=-1, keepdim=True) \
+            * kmax[:, :, None, None]
+        del q64, k64, v64, both
+        lam, u = 10.0, 2.0 ** -24
+        tol = u * mag * (2.0 * ((lam * d ** 0.5 + 3.0) * a + 4.0)
+                         + 2.0 * lam * (sk + sk / 64) ** 0.5 + 1.0)
+        if q.dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -8 * (want.abs() + tol)
+        return want, tol
+
+    def attn_err(got, want, tol):
+        """(max abs error, max of error / tolerance) of ``got``."""
+        err = (got.double() - want).abs_()
+        return float(err.max()), float((err / tol).max())
 
     # ---- 1. device ---------------------------------------------------------
     smi = subprocess.run(
@@ -176,7 +255,10 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
-                         "cudnn": torch.backends.cudnn.allow_tf32}})
+                         "cudnn": torch.backends.cudnn.allow_tf32},
+          "allow_bf16_reduced_precision_reduction":
+              torch.backends.cuda.matmul
+              .allow_bf16_reduced_precision_reduction})
 
     # ---- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -1117,9 +1199,239 @@ def main() -> int:
               "gecon/getri path")
     counts = {k: counts[k] + counts_cond[k] for k in counts}
     for name, count in counts.items():
-        check(count > 0, f"kernel {name} was not launched on the main paths")
+        if name != "flash_attention":   # the serving path's, checked there
+            check(count > 0,
+                  f"kernel {name} was not launched on the main paths")
 
-    # ---- 10. report --------------------------------------------------------
+    # ---- 10. flash attention against its plain version ---------------------
+    torch.cuda.empty_cache()
+    cfg = get_config(ARCH)
+    heads, kv_heads, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    attn_rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        size = torch.finfo(dtype).bits // 8
+        res = {}
+        for key, bsz, seq, reps in (("serve", SERVE_BATCH, PROMPT, 10),
+                                    ("prefill_32k", 1, LONG_S, 2)):
+            gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+
+            def randn(*shape):
+                return torch.randn(shape, generator=gen, device=dev,
+                                   dtype=dtype)
+
+            q = randn(bsz, heads, seq, hd)
+            k, v = randn(bsz, kv_heads, seq, hd), randn(bsz, kv_heads, seq, hd)
+            got = attention.flash_attention(q, k, v)
+            sync()
+            want, tol = attn_expect(q, k, v)
+            mx, worst = attn_err(got, want, tol)
+            # planted faults the tolerance must catch: the 64-key tile at
+            # S/2 left out (hidden through kpos), the second half of the
+            # rows not written
+            kpos = torch.arange(seq, dtype=torch.int32, device=dev)
+            kpos[seq // 2:seq // 2 + 64] = seq
+            skip = attn_err(attention.flash_attention(q, k, v, kpos=kpos),
+                            want, tol)[1]
+            got[:, :, seq // 2:] = 0
+            zero = attn_err(got, want, tol)[1]
+            if dtype == torch.bfloat16:
+                ke, ve = k, v
+
+                def lib():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        q, ke, ve, is_causal=True, enable_gqa=True)
+            else:
+                # enable_gqa sends float32 to the math backend, which
+                # materialises the 32k x 32k scores (160 GiB): time the
+                # same function on KV heads repeated beforehand instead
+                ke = k.repeat_interleave(heads // kv_heads, dim=1)
+                ve = v.repeat_interleave(heads // kv_heads, dim=1)
+
+                def lib():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        q, ke, ve, is_causal=True)
+            lib_err = float((lib().double() - want).abs().max())
+            check(worst <= 1.0, f"flash_attention {dtype} {key}: kernel vs "
+                  f"plain (float64) {worst} of the tolerance, max abs err "
+                  f"{mx}")
+            check(skip > 1.0 and zero > 1.0,
+                  f"flash_attention {dtype} {key}: the tolerance does not "
+                  f"catch a skipped tile ({skip}) or unwritten rows ({zero})")
+            res[key] = dict(
+                shape=[bsz, heads, kv_heads, seq, hd], causal=True,
+                max_abs_err=mx, err_over_tol=worst,
+                planted_err_over_tol={"tile_skipped": skip,
+                                      "half_rows_zero": zero},
+                library_max_abs_err=lib_err,
+                ms=time_ms(lambda: attention.flash_attention(q, k, v), reps),
+                plain_ms=time_ms(
+                    lambda: attention.flash_attention_plain(q, k, v), 1),
+                library_ms=time_ms(lib, reps),
+                library=("sdpa(is_causal, enable_gqa)"
+                         if dtype == torch.bfloat16
+                         else "sdpa(is_causal), KV repeated to 40 heads"),
+                bound=bound(0.5 * 4.0 * bsz * heads * seq * seq * hd,
+                            2.0 * (q.numel() + k.numel()) * size,
+                            BF16_FLOPS if dtype == torch.bfloat16
+                            else PEAK_FLOPS))
+            del q, k, v, got, want, tol, ke, ve
+        attn_rows[str(dtype).replace("torch.", "")] = res
+        emit({"phase": "kernels_attention", "dtype": str(dtype),
+              "results": res})
+    torch.cuda.empty_cache()
+
+    # ---- 11. serve phi3-medium-14b: full width and depth, bfloat16 ---------
+    sync()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, SEED)
+    sync()
+    init_s = time.perf_counter() - t0
+
+    def leaves(tree):
+        for x in tree.values():
+            yield from leaves(x) if isinstance(x, dict) else (x,)
+
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    engine = ServeEngine(cfg, params, ServeConfig(
+        batch_size=SERVE_BATCH, max_len=PROMPT + NEW_TOKENS, seed=SEED))
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, PROMPT)).astype(np.int32)
+    engine.generate(prompts, 4)    # warm-up: library handles, heuristics
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    tokens, stats = engine.generate(prompts, NEW_TOKENS)
+    serve_counts = ops.launches()
+    peak = torch.cuda.max_memory_allocated()
+    check(tokens.shape == (SERVE_BATCH, NEW_TOKENS)
+          and 0 <= tokens.min() and tokens.max() < cfg.vocab_size,
+          f"serve: tokens of shape {tokens.shape} outside the vocab")
+    # 40 launches per prefill, none per decode step (one prefill and
+    # NEW_TOKENS - 1 decode steps in this run)
+    check(serve_counts["flash_attention"] == cfg.num_layers,
+          f"serve: {serve_counts['flash_attention']} flash_attention "
+          f"launches, expected {cfg.num_layers} (one prefill)")
+    steps = NEW_TOKENS - 1
+
+    def device_busy(fn):
+        """Wall ms of ``fn`` under ``torch.profiler``, the ms in which the
+        card ran a kernel or copy (the union of their intervals) and the
+        device time by kernel name (top 6); the profiler's own host cost
+        lengthens the wall time, so the busy ms are the number to read."""
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sync()
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+        spans, by_name = [], {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                spans.append((ev.time_range.start, ev.time_range.end))
+                by_name[ev.name] = by_name.get(ev.name, 0.0) + \
+                    (ev.time_range.end - ev.time_range.start) / 1e3
+        busy, end = 0.0, float("-inf")
+        for a, b in sorted(spans):
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        return {"wall_ms": wall,
+                "busy_ms": busy / 1e3 if spans else None,   # not measured
+                "kernels": len(spans),
+                "top_ms": {name[:60]: ms for name, ms in top}}
+
+    prof_cache = {}
+
+    def prof_prefill():
+        prof_cache["c"] = api.prefill(cfg, params, {"tokens": prompts},
+                                      max_len=PROMPT + NEW_TOKENS)[1]
+
+    def prof_decode():
+        for i in range(8):
+            api.decode_step(cfg, params, prof_cache["c"], prompts[:, :1],
+                            PROMPT + i)
+
+    busy_prefill = device_busy(prof_prefill)
+    busy_decode = device_busy(prof_decode)
+    del prof_cache
+    emit({"phase": "serve", "arch": ARCH, "dtype": cfg.dtype,
+          "layers": cfg.num_layers, "params": cfg.param_count(),
+          "param_bytes": param_bytes, "init_s": init_s,
+          "batch": SERVE_BATCH, "prompt": PROMPT, "new_tokens": NEW_TOKENS,
+          "sampling": "greedy", "prefill_ms": stats["prefill_s"] * 1e3,
+          "decode_steps": steps,
+          "decode_ms_per_step": stats["decode_s"] * 1e3 / steps,
+          "decode_step_p50_ms": stats["p50_ms"],
+          "decode_step_p99_ms": stats["p99_ms"],
+          "decode_tok_per_s": stats["decode_tok_per_s"],
+          "tok_per_s": stats["items_per_s"], "wall_s": stats["wall"],
+          "peak_memory_bytes": peak,
+          "flash_attention_launches": serve_counts["flash_attention"],
+          "prefills": 1,
+          "profiled_prefill": busy_prefill,
+          "profiled_8_decode_steps": busy_decode})
+
+    # ---- 12. teacher-forced decode against the full forward ---------------
+    def consistency(cfg, params):
+        """Prefill CONS_S/2 tokens of a CONS_S-token sequence, decode the
+        next CONS_DECODE of its tokens, and hold the logits to the full
+        forward's over all CONS_S (the flash kernel against the plain
+        decode attention)."""
+        toks = np.random.default_rng(SEED + 9).integers(
+            0, cfg.vocab_size, (1, CONS_S)).astype(np.int32)
+        half = CONS_S // 2
+        ops.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        full = api.apply(cfg, params, {"tokens": toks})
+        sync()
+        full_ms = (time.perf_counter() - t0) * 1e3
+        n_full = ops.launches()["flash_attention"]
+        lg, cache = api.prefill(cfg, params, {"tokens": toks[:, :half]},
+                                max_len=CONS_S)
+        n_prefill = ops.launches()["flash_attention"] - n_full
+        rows = [lg[:, 0]]
+        for i in range(CONS_DECODE):
+            lg, cache = api.decode_step(cfg, params, cache,
+                                        toks[:, half + i:half + i + 1],
+                                        half + i)
+            rows.append(lg[:, 0])
+        n_decode = ops.launches()["flash_attention"] - n_full - n_prefill
+        got = torch.stack(rows, dim=1).double()
+        want = full[:, half - 1:half + CONS_DECODE].double()
+        check(bool(torch.isfinite(full).all()) and full.shape ==
+              (1, CONS_S, cfg.vocab_size), "consistency: full forward "
+              "logits not finite or of the wrong shape")
+        check((n_full, n_prefill, n_decode)
+              == (cfg.num_layers, cfg.num_layers, 0),
+              f"consistency: flash launches {n_full}/{n_prefill}/{n_decode}")
+        rel = float((got - want).norm() / want.norm())
+        tol = CONS_TOL[cfg.dtype]
+        check(rel <= tol, f"consistency {cfg.dtype}: relative deviation "
+              f"{rel} > {tol}")
+        emit({"phase": "consistency", "arch": ARCH, "dtype": cfg.dtype,
+              "layers": cfg.num_layers, "sequence": CONS_S, "prefill": half,
+              "decode_steps": CONS_DECODE, "rel_fro_deviation": rel,
+              "limit": tol,
+              "max_abs_deviation": float((got - want).abs().max()),
+              "max_abs_logit": float(want.abs().max()),
+              "argmax_agreement": float((got.argmax(-1) == want.argmax(-1))
+                                        .double().mean()),
+              "full_forward_ms": full_ms,
+              "flash_launches": {"full": n_full, "prefill": n_prefill,
+                                 "decode": n_decode}})
+
+    consistency(cfg, params)
+    del engine, params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, num_layers=CONS_F32_LAYERS,
+                                dtype="float32")
+    consistency(cfg32, api.init_params(cfg32, SEED))
+    torch.cuda.empty_cache()
+
+    # ---- 13. report --------------------------------------------------------
     sources = {"gemm_accum": "gemm.cu", "trsm": "trsm.cu",
                "lu_panel": "panel_lu.cu", "lu_solve_small": "trsm.cu",
                "trsm_right_lower_t": "trsm.cu",
@@ -1158,6 +1470,8 @@ def main() -> int:
 
     kernels = []
     for name in ops.KERNELS:
+        if name == "flash_attention":
+            continue
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{sources[name]}",
@@ -1167,6 +1481,22 @@ def main() -> int:
             kernels[-1]["shapes"] = {key: at_shape(key) for key in (
                 "gemm", "gemm_gels_vtc", "gemm_gels_vtc_pu", "gemm_gels_vtb",
                 "gemm_accum_qrcp")}
+
+    def attn_numbers(r):
+        return {**numbers(r), "err_over_tol": r["err_over_tol"]}
+
+    def attn_shape(key):   # bfloat16 at the top level, float32 beside it
+        return {**attn_numbers(attn_rows["bfloat16"][key]),
+                "dtype": "bfloat16",
+                "shape": attn_rows["bfloat16"][key]["shape"],
+                "float32": attn_numbers(attn_rows["float32"][key])}
+
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/attention.py:105",
+        "launches": serve_counts["flash_attention"], **attn_shape("serve"),
+        "shapes": {"prefill_32k": attn_shape("prefill_32k")}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -28,7 +28,9 @@ TF32.  A float32 product on the GPU may run in TF32 (about three decimal
 digits) when ``torch.backends.cuda.matmul.allow_tf32`` or
 ``torch.backends.cudnn.allow_tf32`` is set.  Every library-backend call
 clears both flags first (:func:`no_tf32`), so the baseline computes at the
-input dtype.
+input dtype.  The same call clears
+``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``, so
+the model stack's bfloat16 products sum in float32 as the reference's do.
 """
 from __future__ import annotations
 
@@ -42,9 +44,12 @@ __all__ = ["Backend", "TORCH_BACKEND", "get_backend", "resolve_backend",
 
 
 def no_tf32() -> None:
-    """Keep float32 library products in full float32 (no TF32)."""
+    """Keep library products at full precision: float32 in float32 (no
+    TF32), bfloat16 products summed in float32 (no reduced-precision
+    reduction)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def gemm_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -33,7 +33,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: dtypes the kernels are instantiated for, with their C symbol suffix
-SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+#: (bfloat16 only by the flash-attention kernel)
+SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+#: dtypes of the dense linear-algebra kernels (every one but attention)
+DENSE_DTYPES = (torch.float32, torch.float64)
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -179,7 +182,7 @@ def check_matrix(what: str, t: torch.Tensor, dtype: torch.dtype,
 
 
 def kernel_dtype(what: str, t: torch.Tensor) -> torch.dtype:
-    if t.dtype not in SUFFIX:
+    if t.dtype not in DENSE_DTYPES:
         raise ValueError(f"{what}: dtype {t.dtype} not supported "
                          f"(float32 or float64)")
     return t.dtype

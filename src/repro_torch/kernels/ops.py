@@ -22,6 +22,11 @@ The port of :mod:`repro.kernels.ops`'s ``PALLAS_BACKEND``:
 * ``lu_solve_small`` → the fused small solve, taken by
   :func:`repro_torch.solve.triangular.lu_solve_packed`.
 
+The flash-attention kernel of the serving path is not a slot of the
+:class:`Backend` (no factorization calls it): it is registered here only
+in :data:`KERNELS`, so its launches are counted and reset with the rest;
+:func:`repro_torch.models.layers.chunked_attention` calls it.
+
 On CPU tensors every wrapper runs its kernel's plain PyTorch version; on
 CUDA tensors it launches the kernel or raises.  There is no size at which
 a GPU call leaves its kernel for the plain version.
@@ -29,6 +34,7 @@ a GPU call leaves its kernel for the plain version.
 from __future__ import annotations
 
 from repro_torch.core.backend import Backend, trsm_torch
+from repro_torch.kernels import attention as _attn
 from repro_torch.kernels import blis_gemm as _bg
 from repro_torch.kernels import fused_panel_update as _fpu
 from repro_torch.kernels import panel_hessenberg as _phess
@@ -89,8 +95,9 @@ FUSED_PU = {
 CUDA_BACKEND = Backend(name="cuda", gemm=gemm, trsm=trsm, update=update,
                        panel_fns=PANEL_KERNELS, fused_pu=FUSED_PU)
 
-#: Every kernel wrapper of the backend, by the name its launch count goes
-#: under (``gemm`` and ``update`` share the GEMM kernel's count).
+#: Every kernel wrapper, by the name its launch count goes under (``gemm``
+#: and ``update`` share the GEMM kernel's count); all but the last are the
+#: backend's.
 KERNELS = {
     "gemm_accum": _bg.gemm_accum,
     "trsm": _tr.trsm,
@@ -103,6 +110,7 @@ KERNELS = {
     "trsm_right_lower_t": _tr.trsm_right_lower_t,
     "fused_lu_panel_update": _fpu.fused_lu_panel_update,
     "fused_cholesky_panel_update": _fpu.fused_cholesky_panel_update,
+    "flash_attention": _attn.flash_attention,
 }
 
 

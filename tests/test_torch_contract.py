@@ -16,8 +16,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config, reduced_config
 from repro_torch.core import cholesky, lookahead, lu
 from repro_torch.kernels import _build
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import api, convert
 from repro_torch.solve import (CholeskyFactors, HessenbergFactors,
                                LUFactors, QRCPFactors, QRFactors,
                                cholesky_factor, gecon, gehrd, geqp3, gels,
@@ -29,6 +32,9 @@ PORT = SRC / "repro_torch"
 _CHILD = """
 import sys
 import repro_torch.solve, repro_torch.kernels.ops, repro_torch.obs
+import repro_torch.configs, repro_torch.models.api, repro_torch.models.convert
+import repro_torch.serve.engine, repro_torch.serve.metrics
+import repro_torch.launch.serve
 from repro_torch.kernels import _build
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -52,7 +58,14 @@ def test_no_source_file_imports_jax_or_the_reference():
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 10
     assert {PORT / "core" / "hessenberg.py",
-            PORT / "kernels" / "panel_hessenberg.py"} <= set(files)
+            PORT / "kernels" / "panel_hessenberg.py",
+            PORT / "kernels" / "attention.py",
+            PORT / "configs" / "base.py", PORT / "configs" / "registry.py",
+            PORT / "models" / "layers.py", PORT / "models" / "transformer.py",
+            PORT / "models" / "api.py", PORT / "models" / "convert.py",
+            PORT / "obs" / "metrics.py", PORT / "serve" / "engine.py",
+            PORT / "serve" / "metrics.py",
+            PORT / "launch" / "serve.py"} <= set(files)
     offenders = [str(f.relative_to(SRC)) for f in files
                  if _FORBIDDEN.search(f.read_text())]
     assert offenders == []
@@ -65,11 +78,14 @@ def test_no_source_file_imports_jax_or_the_reference():
                                    "qr_factor", "gels", "gels_pivot",
                                    "geqp3", "qr_from_numpy",
                                    "qrcp_from_numpy", "gehrd", "gecon",
-                                   "getri", "hessenberg_from_numpy"])
+                                   "getri", "hessenberg_from_numpy",
+                                   "init_params", "init_decode_cache",
+                                   "params_from_numpy", "serve_main"])
 def test_entry_points_default_to_the_gpu_and_raise_without_one(
         monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     a, b = np.eye(4), np.ones((4, 1))
+    small = reduced_config(get_config("phi3-medium-14b"))
     calls = {
         "lu_factor": lambda: lu_factor(a, 2),
         "gesv": lambda: gesv(a, b, 2),
@@ -94,6 +110,12 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(
         "getri": lambda: getri(a, 2),
         "hessenberg_from_numpy": lambda: HessenbergFactors.from_numpy(
             a, np.ones(4), block=2),
+        "init_params": lambda: api.init_params(small, 0),
+        "init_decode_cache": lambda: api.init_decode_cache(small, 1, 8),
+        "params_from_numpy": lambda: convert.params_from_numpy(
+            small, convert.params_to_numpy(
+                api.init_params(small, 0, device="cpu"))),
+        "serve_main": lambda: launch_serve.main(["--smoke"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -109,13 +131,14 @@ def test_explicit_cpu_runs_and_returns_cpu_tensors(driver):
 def test_every_kernel_source_is_built_and_counted():
     assert set(_build.sources()) == {"gemm", "trsm", "panel_lu", "fused_pu",
                                      "panel_qr", "panel_qrcp",
-                                     "panel_hessenberg"}
+                                     "panel_hessenberg", "flash_attention"}
     from repro_torch.kernels import ops
     assert set(ops.KERNELS) == {"gemm_accum", "trsm", "lu_panel",
                                 "lu_solve_small", "trsm_right_lower_t",
                                 "fused_lu_panel_update",
                                 "fused_cholesky_panel_update", "qr_panel",
-                                "larft", "qrcp_panel", "hessenberg_panel"}
+                                "larft", "qrcp_panel", "hessenberg_panel",
+                                "flash_attention"}
 
 
 def test_ptxas_summary_parses_a_verbose_log():

@@ -23,6 +23,10 @@ import torch
 
 from repro_torch.core.cholesky import cholesky_panel
 from repro_torch.core.qr import unpack_v
+from repro_torch.configs import get_config, reduced_config
+from repro_torch.kernels import attention as attn
+from repro_torch.models import api
+from repro_torch.models import layers as L
 from repro_torch.kernels import blis_gemm, ops, panel_hessenberg, \
     panel_lu, panel_qr, panel_qrcp, trsm
 from repro_torch.kernels import fused_panel_update as fpu
@@ -474,3 +478,162 @@ def test_gecon_and_getri_on_the_card(card, dtype):
         n * torch.finfo(dtype).eps * float(a64.norm())
         * float(x.double().norm()))
     assert res < 100.0
+
+
+def _attn_expect(q, k, v, *, causal=True, qpos=None, kpos=None):
+    """The plain version in float64 and the kernel's elementwise tolerance
+    against it (the same bound as ``chip_smoke.py``'s).
+
+    One output is o = Σ p_j·v_j / Σ p_j with p_j = exp(s_j − m).  With
+    u = 2^-24 and rounding errors bounded as Higham and Mary's
+    probabilistic analysis does, at λ = 10 (a miss chance far below 1e-9
+    over every output here): a score, a D-term dot product scaled, is off
+    by (λ·√D + 1)·u·a, a = scale·|q_i|·max_j|k_j| ≥ |s_j|; exp's argument
+    s_j − m by u·2a more, and expf adds 2 ulp, so every p_j is off by a
+    relative δ = u·((λ·√D + 3)·a + 4), which moves o by at most 2·δ·M,
+    M = Σ p_j·|v_j| / Σ p_j.  The two sums over Sk keys and the Sk/64 tile
+    rescalings add 2·λ·√(Sk + Sk/64)·u·M, the division u·M.  bfloat16
+    output adds its rounding, 2^-8 of |o| + the above.  The bound scales
+    with M, not with max|v|, so a tile left out or a row not written
+    exceeds it (``test_flash_attention_tolerance_catches_planted_faults``).
+    """
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    q64, k64, v64 = q.double(), k.double(), v.double()
+    both = attn.flash_attention_plain(
+        q64, k64, torch.cat([v64, v64.abs()], dim=-1), qpos, kpos,
+        causal=causal, block_q=1024, block_k=1024)
+    want, mag = both[..., :d], both[..., d:]
+    kmax = k64.norm(dim=-1).amax(dim=-1).repeat_interleave(h // hkv, dim=1)
+    a = d ** -0.5 * q64.norm(dim=-1, keepdim=True) * kmax[:, :, None, None]
+    lam, u = 10.0, 2.0 ** -24
+    tol = u * mag * (2.0 * ((lam * d ** 0.5 + 3.0) * a + 4.0)
+                     + 2.0 * lam * (sk + sk / 64) ** 0.5 + 1.0)
+    if q.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -8 * (want.abs() + tol)
+    return want, tol
+
+
+def _attn_within(got, want, tol):
+    return bool(((got.double() - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal", [
+    (1, 2, 1, 64, 64, 32, True), (2, 4, 2, 100, 100, 64, False),
+    (1, 8, 2, 300, 300, 128, True), (2, 4, 4, 130, 257, 128, False),
+    (2, 40, 10, 256, 256, 128, True)])
+def test_flash_attention_matches_plain(card, dtype, b, h, hkv, sq, sk, d,
+                                       causal):
+    q = _randn((b, h, sq, d), dtype, card, 50)
+    k = _randn((b, hkv, sk, d), dtype, card, 51)
+    v = _randn((b, hkv, sk, d), dtype, card, 52)
+    before = attn.flash_attention.launches
+    got = attn.flash_attention(q, k, v, causal=causal)
+    assert attn.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, sq, d)
+    want, tol = _attn_expect(q, k, v, causal=causal)
+    assert _attn_within(got, want, tol)
+    # the plain version at the input dtype, as the CPU path runs it
+    assert _attn_within(attn.flash_attention_plain(q, k, v, causal=causal),
+                        want, tol)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_flash_attention_tolerance_catches_planted_faults(card, dtype):
+    # the tolerance must fail a kernel that leaves out one 64-key tile (the
+    # one at Sk/2, hidden here through kpos) or that does not write the
+    # second half of the rows, at a causal GQA shape
+    b, h, hkv, s, d = 1, 8, 2, 1024, 128
+    q = _randn((b, h, s, d), dtype, card, 60)
+    k = _randn((b, hkv, s, d), dtype, card, 61)
+    v = _randn((b, hkv, s, d), dtype, card, 62)
+    want, tol = _attn_expect(q, k, v)
+    got = attn.flash_attention(q, k, v)
+    assert _attn_within(got, want, tol)
+    kpos = torch.arange(s, dtype=torch.int32, device=card)
+    kpos[s // 2:s // 2 + 64] = s
+    assert not _attn_within(attn.flash_attention(q, k, v, kpos=kpos),
+                            want, tol)
+    half = got.clone()
+    half[:, :, s // 2:] = 0
+    assert not _attn_within(half, want, tol)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_flash_attention_positions_and_masked_rows(card, dtype):
+    # queries at positions -70.. see no key for their first 70 rows (every
+    # score -1e30: the mean of v, as the reference computes it), and the
+    # strided q view goes through the wrapper's contiguous copy
+    b, h, hkv, s, d = 1, 4, 2, 192, 128
+    q = _randn((b, s, h, d), dtype, card, 53).transpose(1, 2)
+    k = _randn((b, hkv, s, d), dtype, card, 54)
+    v = _randn((b, hkv, s, d), dtype, card, 55)
+    qpos = torch.arange(s, dtype=torch.int32, device=card) - 70
+    kpos = torch.arange(s, dtype=torch.int32, device=card)
+    got = attn.flash_attention(q, k, v, qpos=qpos, kpos=kpos)
+    want, tol = _attn_expect(q, k, v, qpos=qpos, kpos=kpos)
+    assert _attn_within(got, want, tol)
+    assert _attn_within(attn.flash_attention_plain(
+        q, k, v, qpos, kpos, block_q=64, block_k=96), want, tol)
+    mean_v = v.double().mean(dim=2)[:, :, None].repeat_interleave(2, dim=1)
+    assert _attn_within(got[:, :, :70], mean_v, tol[:, :, :70])
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(card):
+    q = _randn((1, 2, 64, 64), torch.float32, card, 56)
+    with pytest.raises(ValueError, match="head dim"):
+        attn.flash_attention(q[..., :48], q[..., :48], q[..., :48])
+    with pytest.raises(ValueError, match="dtype"):
+        attn.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="backward"):
+        attn.flash_attention(q.requires_grad_(), q, q)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
+        attn.flash_attention(q, q, q, window=16)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_chunked_attention_launches_the_kernel(card, dtype):
+    b, g, hg, s, d = 2, 2, 3, 256, 64
+    q = _randn((b, g, hg, s, d), dtype, card, 57)
+    k = _randn((b, g, s, d), dtype, card, 58)
+    v = _randn((b, g, s, d), dtype, card, 59)
+    pos = torch.arange(s, device=card)
+    before = attn.flash_attention.launches
+    got = L.chunked_attention(q, k, v, pos, pos, chunk_q=64, chunk_k=128)
+    assert attn.flash_attention.launches == before + 1
+    ref = L.chunked_attention(q.cpu(), k.cpu(), v.cpu(), pos.cpu(),
+                              pos.cpu(), chunk_q=64, chunk_k=128)
+    want, tol = _attn_expect(q.reshape(b, g * hg, s, d), k, v)
+    shape = (b, g * hg, s, d)
+    assert _attn_within(got.reshape(shape), want, tol)
+    assert _attn_within(ref.reshape(shape).to(card), want, tol)
+
+
+def test_reduced_phi3_on_the_card_matches_the_cpu(card):
+    # the serving path on the card (flash kernel, cuBLAS) against the same
+    # path on the CPU (plain versions), float32: summation order only, so
+    # 1e-4 of the largest |logit| (the two devices' GEMMs sum in other
+    # orders; the CPU tests hold the CPU path to the reference at 1e-5)
+    cfg = reduced_config(get_config("phi3-medium-14b"))
+    params = api.init_params(cfg, 0, device=card)
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+
+    cpu_params = to_cpu(params)
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 128))
+    full = api.apply(cfg, params, {"tokens": toks})
+    full_cpu = api.apply(cfg, cpu_params, {"tokens": toks})
+    tol = 1e-4 * float(full_cpu.abs().max())
+    assert float((full.cpu() - full_cpu).abs().max()) <= tol
+    ops.reset_launches()
+    lg, cache = api.prefill(cfg, params, {"tokens": toks[:, :64]},
+                            max_len=128)
+    for i in range(3):
+        lg, cache = api.decode_step(cfg, params, cache,
+                                    toks[:, 64 + i:65 + i], 64 + i)
+        assert float((lg[:, 0].cpu() - full_cpu[:, 64 + i]).abs().max()) \
+            <= tol
+    assert ops.launches()["flash_attention"] == cfg.num_layers
