@@ -68,10 +68,35 @@
     the logits to one full ``api.apply`` over all 2048 (the flash kernel
     against the plain decode attention), float32 at full width and 4
     layers, bfloat16 at 40 layers, each within ``CONS_TOL``.
+13. ``wkv6_fused`` against its plain version, bfloat16 and float32, at the
+    serving shape (B 4, H 64, S 1024, 64, chunk 128), at one 32k sequence
+    and at S 1000 (a short last chunk) from a nonzero state, on decays drawn
+    like the served model's (the share of chunks where the clip engages is
+    reported): each output and final state within an elementwise bound of
+    the plain version run in float64 (``wkv6_expect``: the cumsum's
+    rounding reaches the exponents), which three planted faults must
+    exceed (the state dropped at a chunk boundary, the diagonal in the score
+    mask, the last chunk not written); a run split at a chunk boundary
+    equals the unsplit one bitwise; with its time, the plain version's and
+    the bound (no PyTorch call computes WKV6).
+14. serving: rwkv6-7b at full width and depth (32 layers, bfloat16) the
+    same way as phi3: 32 ``wkv6_fused`` launches in the prefill, none in
+    decode (``wkv6_step`` is plain tensor ops, as in the reference).
+15. rwkv6-7b teacher-forced decode against the full forward, bfloat16 at
+    32 layers and float32 at 4, gated at a chunk of 16 where the clip
+    cannot engage (checked on the run), within ``CONS_TOL_RWKV``; in
+    bfloat16 each route's deviation from the same weights' float32 full
+    forward, the two within ``ROUNDING_RATIO`` of each other (the witness
+    that the bfloat16 deviation is rounding); at the config's chunk 128
+    each layer's kernel output within its bound of the plain version on
+    the same inputs (gated), and token-by-token decode
+    from position 0 against the full forward over 256 tokens (float32, 4
+    layers; recorded, not gated: the reference's clip).
 
 Launch counts are set to 0 just before each path and read just after it;
-each kernel of a path must have launched in it (``flash_attention`` on the
-serving path, the others on the factorization paths).
+each kernel of a path must have launched in it (``flash_attention`` and
+``wkv6_fused`` on their serving paths, the others on the factorization
+paths).
 
 Each phase prints one JSON line and raises on failure (non-zero exit).
 Then come the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
@@ -81,6 +106,7 @@ non-zero before printing anything.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -113,6 +139,33 @@ CONS_F32_LAYERS = 4              # the float32 check's depth (full width)
 #: places the two routes do not share; as a random walk that is
 #: sqrt(320)·2^-9 = 3.5e-2 of the logits' scale, and the bound allows 3x.
 CONS_TOL = {"float32": 1e-4, "bfloat16": 0.1}
+RWKV_ARCH = "rwkv6-7b"           # the second serving path, full width and depth
+WKV_RAGGED = 1000                # a sequence that ends in a short chunk
+#: The chunk at which rwkv6-7b's teacher-forced decode is gated: the
+#: cumulative log-decay inside one chunk stays above the clip's -80 there
+#: (16·max|log w| ≈ 70; the phase checks it on its own run), so the chunked
+#: form is the exact recurrence up to rounding.  At the config's 128 the
+#: clip engages and the two differ by the reference's own design.
+CONS_RWKV_CHUNK = 16
+#: Relative Frobenius deviation, rwkv6-7b, at CONS_RWKV_CHUNK.  float32 as
+#: phi3's (the deepest sum is d_ff = 14336).  bfloat16: each of the 32
+#: layers rounds 38 activations to bfloat16 (layer norm 2, the five
+#: time-mix and two channel-mix token shifts at 3 roundings each, the r, k,
+#: v, g, wo, ck, cr and cv products 8, silu, y·g, square, sigmoid, the
+#: gate product and the 2 residual adds) at places the two routes (M = 2048
+#: GEMMs, M = 1 GEMVs) round differently; as a random walk
+#: sqrt(32·38)·2^-9 = 6.8e-2 of the logits' scale, and the bound allows 3x.
+CONS_TOL_RWKV = {"float32": 1e-4, "bfloat16": 0.2}
+#: The witness that rwkv6-7b's bfloat16 deviation is rounding: the same
+#: weights' full forward in float32 is the rounding-free answer, and each
+#: bfloat16 route (full forward; prefill + decode) lies some distance from
+#: it.  Both routes round at the same operations, so rounding puts them
+#: about equally far; a fault that only one bfloat16 route has puts that
+#: one further.  The larger distance may be at most twice the smaller.
+ROUNDING_RATIO = 2.0
+STEPWISE_S = 256                 # token-by-token decode over two chunks of 128
+#: kernels checked on the serving paths, not on the factorization paths
+SERVING_KERNELS = ("flash_attention", "wkv6_fused")
 #: Peaks of one H100 SXM: 67 TFLOP/s for float32 outside the tensor cores
 #: and for float64 through them (NVIDIA data sheet); 3.35 TB/s of HBM3.
 PEAK_FLOPS = 67e12
@@ -153,7 +206,8 @@ def main() -> int:
                                      panel_hessenberg, panel_lu, panel_qr,
                                      panel_qrcp, trsm)
     from repro_torch.kernels import fused_panel_update as fpu
-    from repro_torch.models import api
+    from repro_torch.kernels import wkv6 as wkv
+    from repro_torch.models import api, rwkv6
     from repro_torch.obs import tracer
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     from repro_torch.solve import (cholesky_factor, gecon, gehrd, geqp3,
@@ -1199,7 +1253,7 @@ def main() -> int:
               "gecon/getri path")
     counts = {k: counts[k] + counts_cond[k] for k in counts}
     for name, count in counts.items():
-        if name != "flash_attention":   # the serving path's, checked there
+        if name not in SERVING_KERNELS:   # checked on the serving paths
             check(count > 0,
                   f"kernel {name} was not launched on the main paths")
 
@@ -1281,36 +1335,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 11. serve phi3-medium-14b: full width and depth, bfloat16 ---------
-    sync()
-    t0 = time.perf_counter()
-    params = api.init_params(cfg, SEED)
-    sync()
-    init_s = time.perf_counter() - t0
-
     def leaves(tree):
         for x in tree.values():
             yield from leaves(x) if isinstance(x, dict) else (x,)
-
-    param_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
-    engine = ServeEngine(cfg, params, ServeConfig(
-        batch_size=SERVE_BATCH, max_len=PROMPT + NEW_TOKENS, seed=SEED))
-    prompts = np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (SERVE_BATCH, PROMPT)).astype(np.int32)
-    engine.generate(prompts, 4)    # warm-up: library handles, heuristics
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launches()
-    tokens, stats = engine.generate(prompts, NEW_TOKENS)
-    serve_counts = ops.launches()
-    peak = torch.cuda.max_memory_allocated()
-    check(tokens.shape == (SERVE_BATCH, NEW_TOKENS)
-          and 0 <= tokens.min() and tokens.max() < cfg.vocab_size,
-          f"serve: tokens of shape {tokens.shape} outside the vocab")
-    # 40 launches per prefill, none per decode step (one prefill and
-    # NEW_TOKENS - 1 decode steps in this run)
-    check(serve_counts["flash_attention"] == cfg.num_layers,
-          f"serve: {serve_counts['flash_attention']} flash_attention "
-          f"launches, expected {cfg.num_layers} (one prefill)")
-    steps = NEW_TOKENS - 1
 
     def device_busy(fn):
         """Wall ms of ``fn`` under ``torch.profiler``, the ms in which the
@@ -1342,43 +1369,82 @@ def main() -> int:
                 "kernels": len(spans),
                 "top_ms": {name[:60]: ms for name, ms in top}}
 
-    prof_cache = {}
+    def serve(cfg, phase, kernel):
+        """Serve ``cfg`` (seeded random weights made on the card) through
+        ``ServeEngine.generate``: batch 4, prompt 1024, 64 new tokens,
+        greedy.  ``kernel`` must launch once a layer in the prefill, never
+        in decode, and no other kernel may launch.  Returns (params, the
+        run's launch counts)."""
+        sync()
+        t0 = time.perf_counter()
+        params = api.init_params(cfg, SEED)
+        sync()
+        init_s = time.perf_counter() - t0
+        param_bytes = sum(t.numel() * t.element_size()
+                          for t in leaves(params))
+        engine = ServeEngine(cfg, params, ServeConfig(
+            batch_size=SERVE_BATCH, max_len=PROMPT + NEW_TOKENS, seed=SEED))
+        prompts = np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (SERVE_BATCH, PROMPT)).astype(np.int32)
+        engine.generate(prompts, 4)    # warm-up: library handles, heuristics
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        tokens, stats = engine.generate(prompts, NEW_TOKENS)
+        counts = ops.launches()
+        peak = torch.cuda.max_memory_allocated()
+        check(tokens.shape == (SERVE_BATCH, NEW_TOKENS)
+              and 0 <= tokens.min() and tokens.max() < cfg.vocab_size,
+              f"{phase}: tokens of shape {tokens.shape} outside the vocab")
+        # one launch a layer per prefill, none per decode step (one prefill
+        # and NEW_TOKENS - 1 decode steps in this run), no other kernel
+        others = {n: c for n, c in counts.items() if n != kernel and c}
+        check(counts[kernel] == cfg.num_layers and not others,
+              f"{phase}: {counts[kernel]} {kernel} launches, expected "
+              f"{cfg.num_layers} (one prefill); others {others}")
+        steps = NEW_TOKENS - 1
+        prof_cache = {}
 
-    def prof_prefill():
-        prof_cache["c"] = api.prefill(cfg, params, {"tokens": prompts},
-                                      max_len=PROMPT + NEW_TOKENS)[1]
+        def prof_prefill():
+            prof_cache["c"] = api.prefill(cfg, params, {"tokens": prompts},
+                                          max_len=PROMPT + NEW_TOKENS)[1]
 
-    def prof_decode():
-        for i in range(8):
-            api.decode_step(cfg, params, prof_cache["c"], prompts[:, :1],
-                            PROMPT + i)
+        def prof_decode():
+            for i in range(8):
+                api.decode_step(cfg, params, prof_cache["c"], prompts[:, :1],
+                                PROMPT + i)
 
-    busy_prefill = device_busy(prof_prefill)
-    busy_decode = device_busy(prof_decode)
-    del prof_cache
-    emit({"phase": "serve", "arch": ARCH, "dtype": cfg.dtype,
-          "layers": cfg.num_layers, "params": cfg.param_count(),
-          "param_bytes": param_bytes, "init_s": init_s,
-          "batch": SERVE_BATCH, "prompt": PROMPT, "new_tokens": NEW_TOKENS,
-          "sampling": "greedy", "prefill_ms": stats["prefill_s"] * 1e3,
-          "decode_steps": steps,
-          "decode_ms_per_step": stats["decode_s"] * 1e3 / steps,
-          "decode_step_p50_ms": stats["p50_ms"],
-          "decode_step_p99_ms": stats["p99_ms"],
-          "decode_tok_per_s": stats["decode_tok_per_s"],
-          "tok_per_s": stats["items_per_s"], "wall_s": stats["wall"],
-          "peak_memory_bytes": peak,
-          "flash_attention_launches": serve_counts["flash_attention"],
-          "prefills": 1,
-          "profiled_prefill": busy_prefill,
-          "profiled_8_decode_steps": busy_decode})
+        busy_prefill = device_busy(prof_prefill)
+        busy_decode = device_busy(prof_decode)
+        del prof_cache, engine
+        emit({"phase": phase, "arch": cfg.name, "dtype": cfg.dtype,
+              "layers": cfg.num_layers, "params": cfg.param_count(),
+              "param_bytes": param_bytes, "init_s": init_s,
+              "batch": SERVE_BATCH, "prompt": PROMPT,
+              "new_tokens": NEW_TOKENS,
+              "sampling": "greedy", "prefill_ms": stats["prefill_s"] * 1e3,
+              "decode_steps": steps,
+              "decode_ms_per_step": stats["decode_s"] * 1e3 / steps,
+              "decode_step_p50_ms": stats["p50_ms"],
+              "decode_step_p99_ms": stats["p99_ms"],
+              "decode_tok_per_s": stats["decode_tok_per_s"],
+              "tok_per_s": stats["items_per_s"], "wall_s": stats["wall"],
+              "peak_memory_bytes": peak,
+              f"{kernel}_launches": counts[kernel],
+              "prefills": 1,
+              "profiled_prefill": busy_prefill,
+              "profiled_8_decode_steps": busy_decode})
+        return params, counts
+
+    params, serve_counts = serve(cfg, "serve", "flash_attention")
 
     # ---- 12. teacher-forced decode against the full forward ---------------
-    def consistency(cfg, params):
+    def consistency(cfg, params, phase, kernel, tol, extra=None):
         """Prefill CONS_S/2 tokens of a CONS_S-token sequence, decode the
         next CONS_DECODE of its tokens, and hold the logits to the full
-        forward's over all CONS_S (the flash kernel against the plain
-        decode attention)."""
+        forward's over all CONS_S (the prefill's kernel against plain
+        decode) within ``tol``; ``extra`` adds its keys to the line.
+        Returns the tokens and the compared rows (decoded, full
+        forward's)."""
         toks = np.random.default_rng(SEED + 9).integers(
             0, cfg.vocab_size, (1, CONS_S)).astype(np.int32)
         half = CONS_S // 2
@@ -1388,30 +1454,29 @@ def main() -> int:
         full = api.apply(cfg, params, {"tokens": toks})
         sync()
         full_ms = (time.perf_counter() - t0) * 1e3
-        n_full = ops.launches()["flash_attention"]
+        n_full = ops.launches()[kernel]
         lg, cache = api.prefill(cfg, params, {"tokens": toks[:, :half]},
                                 max_len=CONS_S)
-        n_prefill = ops.launches()["flash_attention"] - n_full
+        n_prefill = ops.launches()[kernel] - n_full
         rows = [lg[:, 0]]
         for i in range(CONS_DECODE):
             lg, cache = api.decode_step(cfg, params, cache,
                                         toks[:, half + i:half + i + 1],
                                         half + i)
             rows.append(lg[:, 0])
-        n_decode = ops.launches()["flash_attention"] - n_full - n_prefill
+        n_decode = ops.launches()[kernel] - n_full - n_prefill
         got = torch.stack(rows, dim=1).double()
         want = full[:, half - 1:half + CONS_DECODE].double()
         check(bool(torch.isfinite(full).all()) and full.shape ==
-              (1, CONS_S, cfg.vocab_size), "consistency: full forward "
+              (1, CONS_S, cfg.vocab_size), f"{phase}: full forward "
               "logits not finite or of the wrong shape")
         check((n_full, n_prefill, n_decode)
               == (cfg.num_layers, cfg.num_layers, 0),
-              f"consistency: flash launches {n_full}/{n_prefill}/{n_decode}")
+              f"{phase}: {kernel} launches {n_full}/{n_prefill}/{n_decode}")
         rel = float((got - want).norm() / want.norm())
-        tol = CONS_TOL[cfg.dtype]
-        check(rel <= tol, f"consistency {cfg.dtype}: relative deviation "
+        check(rel <= tol, f"{phase} {cfg.dtype}: relative deviation "
               f"{rel} > {tol}")
-        emit({"phase": "consistency", "arch": ARCH, "dtype": cfg.dtype,
+        emit({"phase": phase, "arch": cfg.name, "dtype": cfg.dtype,
               "layers": cfg.num_layers, "sequence": CONS_S, "prefill": half,
               "decode_steps": CONS_DECODE, "rel_fro_deviation": rel,
               "limit": tol,
@@ -1420,18 +1485,264 @@ def main() -> int:
               "argmax_agreement": float((got.argmax(-1) == want.argmax(-1))
                                         .double().mean()),
               "full_forward_ms": full_ms,
-              "flash_launches": {"full": n_full, "prefill": n_prefill,
-                                 "decode": n_decode}})
+              "kernel_launches": {"full": n_full, "prefill": n_prefill,
+                                  "decode": n_decode}, **(extra or {})})
+        return toks, got, want
 
-    consistency(cfg, params)
-    del engine, params
+    consistency(cfg, params, "consistency", "flash_attention",
+                CONS_TOL[cfg.dtype])
+    del params
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, num_layers=CONS_F32_LAYERS,
                                 dtype="float32")
-    consistency(cfg32, api.init_params(cfg32, SEED))
+    consistency(cfg32, api.init_params(cfg32, SEED), "consistency",
+                "flash_attention", CONS_TOL[cfg32.dtype])
     torch.cuda.empty_cache()
 
-    # ---- 13. report --------------------------------------------------------
+    # ---- 13. the WKV6 kernel against its plain version ---------------------
+    cfg = get_config(RWKV_ARCH)
+    heads, hd = cfg.num_heads, cfg.head_dim
+    c = cfg.rwkv_chunk
+
+    def wkv_inputs(bsz, seq, dtype, seed):
+        """r, k, v ~ N(0, 1) in ``dtype``; decays drawn like the served
+        model's, log w = -exp(-0.6 + 0.42 z) (its decay offsets have a
+        standard deviation of 0.42); u ~ 0.5 N(0, 1)."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        r, k, v = (randn(bsz, heads, seq, hd).to(dtype) for _ in range(3))
+        logw = -torch.exp(-0.6 + 0.42 * randn(bsz, heads, seq, hd))
+        return r, k, v, logw, 0.5 * randn(heads, hd)
+
+    def wkv_within(got, want, tol):
+        """max of |error| / tolerance."""
+        return float(((got.double() - want).abs_() / tol).max())
+
+    def wkv_bound(r, s0, size):
+        """The least time of one call: the strict score triangle's flops
+        per chunk of n rows, 4·n·dk·dv + n(n-1)·(dk + dv), at the float32
+        peak; each input read once (r, k, v in their dtype, logw, u, s0 in
+        float32), out and the final state written once."""
+        bsz, _, seq, _ = r.shape
+        flops = sum(4.0 * n * hd * hd + n * (n - 1) * 2.0 * hd
+                    for n in (min(c, seq - t) for t in range(0, seq, c)))
+        nbytes = (3 * size + 4 * 2) * r.numel() + 4 * heads * hd \
+            + 4 * (0 if s0 is None else s0.numel()) + 4 * bsz * heads * hd * hd
+        return bound(flops * bsz * heads, nbytes)
+
+    wkv_rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        size = torch.finfo(dtype).bits // 8
+        res = {}
+        for key, bsz, seq, reps in (("serve", SERVE_BATCH, PROMPT, 10),
+                                    ("prefill_32k", 1, LONG_S, 3),
+                                    ("ragged", SERVE_BATCH, WKV_RAGGED, 10)):
+            r, k, v, logw, u = wkv_inputs(bsz, seq, dtype, SEED + 10)
+            # the ragged run continues from the state of a preceding one
+            s0 = None if key != "ragged" else wkv.wkv6_fused(
+                *wkv_inputs(bsz, PROMPT, dtype, SEED + 11), chunk=c)[1]
+            got, sfin = wkv.wkv6_fused(r, k, v, logw, u, s0=s0, chunk=c)
+            sync()
+            want, tol, s_want, s_tol = wkv.wkv6_expect(r, k, v, logw, u,
+                                                       s0=s0, chunk=c)
+            worst = wkv_within(got, want, tol)
+            s_worst = wkv_within(sfin, s_want, s_tol)
+            plain = wkv_within(wkv.wkv6_fused_plain(r, k, v, logw, u, s0=s0,
+                                                    chunk=c)[0], want, tol)
+            # split at the chunk boundary nearest S/2: the second part from
+            # the first's final state equals the unsplit run
+            cut = seq // 2 // c * c
+            part = [x[:, :, :cut] for x in (r, k, v, logw)]
+            rest = [x[:, :, cut:] for x in (r, k, v, logw)]
+            o1, s1 = wkv.wkv6_fused(*part, u, s0=s0, chunk=c)
+            o2, s2 = wkv.wkv6_fused(*rest, u, s0=s1, chunk=c)
+            split_equal = bool(torch.equal(torch.cat([o1, o2], 2), got)
+                               and torch.equal(s2, sfin))
+            del part, rest, o1, o2, s1, s2
+            # the planted faults: a state dropped at the cut, the diagonal
+            # in the score mask, the last chunk unwritten
+            planted = {name: wkv_within(bad, want, tol) for name, bad in
+                       wkv.wkv6_faults(r, k, v, logw, u, got, s0=s0, chunk=c,
+                                       split_at=cut).items()}
+            # the share of (chunk, channel) whose cumulative log-decay
+            # passes -80 inside a full chunk: the clip engages there
+            full_chunks = logw[:, :, :seq // c * c].unflatten(2, (-1, c))
+            cum = torch.cumsum(full_chunks, 3)
+            clipped = {"channels": float((cum[:, :, :, -1] < -80)
+                                         .double().mean()),
+                       "exponents": float((cum < -80).double().mean())}
+            del cum, full_chunks
+            check(worst <= 1.0 and s_worst <= 1.0 and plain <= 1.0,
+                  f"wkv6_fused {dtype} {key}: kernel vs plain (float64) "
+                  f"{worst} (state {s_worst}) of the tolerance, plain "
+                  f"float32 {plain}")
+            check(split_equal, f"wkv6_fused {dtype} {key}: the run split at "
+                  f"{cut} differs from the unsplit one")
+            check(min(planted.values()) > 1.0,
+                  f"wkv6_fused {dtype} {key}: the tolerance does not catch "
+                  f"each planted fault: {planted}")
+            res[key] = dict(
+                shape=[bsz, heads, seq, hd], chunk=c, s0=s0 is not None,
+                max_abs_err=float((got.double() - want).abs().max()),
+                err_over_tol=worst, state_err_over_tol=s_worst,
+                plain_err_over_tol=plain, split_at=cut,
+                split_equals_unsplit=split_equal,
+                planted_err_over_tol=planted,
+                clipped_share=clipped,
+                ms=time_ms(lambda: wkv.wkv6_fused(r, k, v, logw, u, s0=s0,
+                                                  chunk=c), reps),
+                plain_ms=time_ms(lambda: wkv.wkv6_fused_plain(
+                    r, k, v, logw, u, s0=s0, chunk=c), 1),
+                library_ms=None,   # no PyTorch call computes WKV6
+                bound=wkv_bound(r, s0, size))
+            del r, k, v, logw, u, s0, got, sfin, want, tol, s_want, s_tol
+            torch.cuda.empty_cache()
+        wkv_rows[str(dtype).replace("torch.", "")] = res
+        emit({"phase": "kernels_wkv", "dtype": str(dtype), "results": res})
+
+    # ---- 14. serve rwkv6-7b: full width and depth, bfloat16 ----------------
+    params, serve_rwkv_counts = serve(cfg, "serve_rwkv", "wkv6_fused")
+
+    # ---- 15. rwkv6-7b: teacher-forced decode against the full forward ------
+    @contextlib.contextmanager
+    def watch_wkv(check_kernel: bool):
+        """Wrap ``rwkv6.wkv6_chunked`` inside the block: record the lowest
+        cumulative log-decay inside a chunk and the share of (chunk,
+        channel) that pass -80; with ``check_kernel``, hold each layer's
+        WKV output to the plain version in float64 on the same inputs
+        within ``wkv6_expect``'s bound (the worst ratio)."""
+        seen = {"min_cum": 0.0, "clipped_channels": [], "worst": 0.0,
+                "calls": 0}
+        inner = rwkv6.wkv6_chunked
+
+        def watched(r, k, v, logw, u, s0, chunk):
+            out = inner(r, k, v, logw, u, s0, chunk)
+            seq = logw.shape[2]
+            for t0 in range(0, seq, chunk):
+                cum = torch.cumsum(logw[:, :, t0:t0 + chunk], 2)
+                seen["min_cum"] = min(seen["min_cum"], float(cum.min()))
+                seen["clipped_channels"].append(
+                    float((cum[:, :, -1] < -80).double().mean()))
+            if check_kernel:
+                want, tol, _, _ = wkv.wkv6_expect(r, k, v, logw, u, s0=s0,
+                                                  chunk=chunk)
+                seen["worst"] = max(seen["worst"],
+                                    wkv_within(out[0], want, tol))
+            seen["calls"] += 1
+            return out
+
+        rwkv6.wkv6_chunked = watched
+        try:
+            yield seen
+        finally:
+            rwkv6.wkv6_chunked = inner
+
+    def stepwise(cfg, params, seq):
+        """Relative deviation of token-by-token decode from position 0
+        (the exact recurrence) from one full forward (the chunked form)
+        over ``seq`` tokens."""
+        toks = np.random.default_rng(SEED + 12).integers(
+            0, cfg.vocab_size, (1, seq)).astype(np.int32)
+        full = api.apply(cfg, params, {"tokens": toks}).double()
+        lg, cache = api.prefill(cfg, params, {"tokens": toks[:, :1]},
+                                max_len=seq)
+        rows = [lg[:, 0]]
+        for i in range(1, seq):
+            lg, cache = api.decode_step(cfg, params, cache, toks[:, i:i + 1],
+                                        i)
+            rows.append(lg[:, 0])
+        got = torch.stack(rows, dim=1).double()
+        return float((got - full).norm() / full.norm())
+
+    def as_float32(tree):
+        return {name: as_float32(leaf) if isinstance(leaf, dict)
+                else leaf.float() for name, leaf in tree.items()}
+
+    def rounding_witness(cfg, params, toks, got, want):
+        """The bfloat16 teacher-forced deviation beside the rounding-free
+        answer: the same weights' full forward in float32 over the same
+        tokens, and each bfloat16 route's relative deviation from it on
+        the compared rows (``want`` the full forward's, ``got`` prefill +
+        decode's), within ROUNDING_RATIO of each other."""
+        half = CONS_S // 2
+        params32 = as_float32(params)
+        exact = api.apply(dataclasses.replace(cfg, dtype="float32"),
+                          params32, {"tokens": toks})
+        exact = exact[:, half - 1:half + CONS_DECODE].double()
+        del params32
+        torch.cuda.empty_cache()
+        dev = {name: float((rows - exact).norm() / exact.norm())
+               for name, rows in (("full_forward", want),
+                                  ("prefill_decode", got))}
+        ratio = max(dev.values()) / max(min(dev.values()), 1e-300)
+        check(ratio <= ROUNDING_RATIO,
+              f"consistency_rwkv_rounding: the bfloat16 routes lie "
+              f"{dev} from the float32 forward, {ratio} apart")
+        emit({"phase": "consistency_rwkv_rounding", "arch": cfg.name,
+              "layers": cfg.num_layers, "chunk": cfg.rwkv_chunk,
+              "rel_fro_from_float32": dev,
+              "teacher_forced_rel_fro": float((got - want).norm()
+                                              / want.norm()),
+              "ratio": ratio, "limit": ROUNDING_RATIO,
+              "argmax_agreement_with_float32": {
+                  name: float((rows.argmax(-1) == exact.argmax(-1))
+                              .double().mean())
+                  for name, rows in (("full_forward", want),
+                                     ("prefill_decode", got))}})
+
+    def consistency_rwkv(cfg, params):
+        """Gated at CONS_RWKV_CHUNK, where the clip cannot engage (in
+        bfloat16 with the rounding witness beside it); at the config's
+        chunk, each layer's kernel output against the plain version within
+        the kernel bound (gated) and the chunked form against the exact
+        recurrence (recorded)."""
+        gated = dataclasses.replace(cfg, rwkv_chunk=CONS_RWKV_CHUNK)
+        with watch_wkv(False) as seen:
+            toks, got, want = consistency(
+                gated, params, "consistency_rwkv", "wkv6_fused",
+                CONS_TOL_RWKV[cfg.dtype], extra={"chunk": CONS_RWKV_CHUNK})
+        check(seen["min_cum"] > -80.0,
+              f"consistency_rwkv: the cumulative log-decay reached "
+              f"{seen['min_cum']} inside a chunk of {CONS_RWKV_CHUNK}: the "
+              "clip engaged, so the gate does not hold")
+        if cfg.dtype == "bfloat16":
+            rounding_witness(gated, params, toks, got, want)
+        with watch_wkv(True) as seen_c:
+            api.apply(cfg, params, {"tokens": toks})
+        check(seen_c["calls"] == cfg.num_layers and seen_c["worst"] <= 1.0,
+              f"consistency_rwkv: at chunk {cfg.rwkv_chunk} the kernel is "
+              f"{seen_c['worst']} of its bound from the plain version")
+        emit({"phase": "consistency_rwkv_clip", "arch": cfg.name,
+              "dtype": cfg.dtype, "layers": cfg.num_layers,
+              "gated_chunk": CONS_RWKV_CHUNK,
+              "gated_min_cum_in_chunk": seen["min_cum"],
+              "chunk": cfg.rwkv_chunk, "sequence": CONS_S,
+              "min_cum_in_chunk": seen_c["min_cum"],
+              "clipped_channel_share": statistics.mean(
+                  seen_c["clipped_channels"]),
+              "kernel_err_over_tol_worst_layer": seen_c["worst"]})
+
+    consistency_rwkv(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, num_layers=CONS_F32_LAYERS,
+                                dtype="float32")
+    params = api.init_params(cfg32, SEED)
+    consistency_rwkv(cfg32, params)
+    # recorded, not gated: the reference's clip at its own chunk
+    emit({"phase": "rwkv_chunked_vs_stepwise", "arch": cfg32.name,
+          "dtype": cfg32.dtype, "layers": cfg32.num_layers,
+          "sequence": STEPWISE_S, "rel_fro_deviation": {
+              str(ch): stepwise(dataclasses.replace(cfg32, rwkv_chunk=ch),
+                                params, STEPWISE_S)
+              for ch in (CONS_RWKV_CHUNK, cfg32.rwkv_chunk)}})
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- 16. report --------------------------------------------------------
     sources = {"gemm_accum": "gemm.cu", "trsm": "trsm.cu",
                "lu_panel": "panel_lu.cu", "lu_solve_small": "trsm.cu",
                "trsm_right_lower_t": "trsm.cu",
@@ -1470,7 +1781,7 @@ def main() -> int:
 
     kernels = []
     for name in ops.KERNELS:
-        if name == "flash_attention":
+        if name in SERVING_KERNELS:
             continue
         kernels.append({
             "name": name, "route": "cuda",
@@ -1485,18 +1796,28 @@ def main() -> int:
     def attn_numbers(r):
         return {**numbers(r), "err_over_tol": r["err_over_tol"]}
 
-    def attn_shape(key):   # bfloat16 at the top level, float32 beside it
-        return {**attn_numbers(attn_rows["bfloat16"][key]),
+    def bf16_shape(by_dtype, key):   # bfloat16 on top, float32 beside it
+        return {**attn_numbers(by_dtype["bfloat16"][key]),
                 "dtype": "bfloat16",
-                "shape": attn_rows["bfloat16"][key]["shape"],
-                "float32": attn_numbers(attn_rows["float32"][key])}
+                "shape": by_dtype["bfloat16"][key]["shape"],
+                "float32": attn_numbers(by_dtype["float32"][key])}
 
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/attention.py:105",
-        "launches": serve_counts["flash_attention"], **attn_shape("serve"),
-        "shapes": {"prefill_32k": attn_shape("prefill_32k")}})
+        "launches": serve_counts["flash_attention"],
+        **bf16_shape(attn_rows, "serve"),
+        "shapes": {"prefill_32k": bf16_shape(attn_rows, "prefill_32k")}})
+
+    kernels.append({
+        "name": "wkv6_fused", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/wkv6.py:95",
+        "launches": serve_rwkv_counts["wkv6_fused"],
+        **bf16_shape(wkv_rows, "serve"),
+        "shapes": {key: bf16_shape(wkv_rows, key)
+                   for key in ("prefill_32k", "ragged")}})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

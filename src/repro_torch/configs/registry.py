@@ -15,9 +15,9 @@ from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
 
-#: The archs the port runs (the dense decoders, served through the flash
-#: attention kernel).
-ARCH_IDS = ("phi3-medium-14b",)
+#: The archs the port runs: the dense decoder (served through the flash
+#: attention kernel) and RWKV6 (its prefill through the WKV6 kernel).
+ARCH_IDS = ("phi3-medium-14b", "rwkv6-7b")
 
 #: The reference's other archs, with what ports them.
 NOT_PORTED = {
@@ -29,11 +29,11 @@ NOT_PORTED = {
     "deepseek-moe-16b": "ROADMAP Queue 1 item 18 (model stack, MoE)",
     "whisper-small": "ROADMAP Queue 1 item 18 (model stack, enc-dec)",
     "recurrentgemma-9b": "ROADMAP Queue 1 item 18 (model stack, RG-LRU)",
-    "rwkv6-7b": "ROADMAP Queue 1 item 18 (model stack, RWKV6)",
 }
 
 _MODULES = {
     "phi3-medium-14b": "phi3_medium_14b",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 

@@ -22,10 +22,12 @@ The port of :mod:`repro.kernels.ops`'s ``PALLAS_BACKEND``:
 * ``lu_solve_small`` → the fused small solve, taken by
   :func:`repro_torch.solve.triangular.lu_solve_packed`.
 
-The flash-attention kernel of the serving path is not a slot of the
-:class:`Backend` (no factorization calls it): it is registered here only
-in :data:`KERNELS`, so its launches are counted and reset with the rest;
-:func:`repro_torch.models.layers.chunked_attention` calls it.
+The two kernels of the serving paths are not slots of the
+:class:`Backend` (no factorization calls them): flash attention (called
+by :func:`repro_torch.models.layers.chunked_attention`) and WKV6 (called
+by :func:`repro_torch.models.rwkv6.wkv6_chunked`) are registered here
+only in :data:`KERNELS`, so their launches are counted and reset with the
+rest.
 
 On CPU tensors every wrapper runs its kernel's plain PyTorch version; on
 CUDA tensors it launches the kernel or raises.  There is no size at which
@@ -42,6 +44,7 @@ from repro_torch.kernels import panel_lu as _plu
 from repro_torch.kernels import panel_qr as _pqr
 from repro_torch.kernels import panel_qrcp as _pqrcp
 from repro_torch.kernels import trsm as _tr
+from repro_torch.kernels import wkv6 as _wkv
 
 __all__ = ["CUDA_BACKEND", "PANEL_KERNELS", "FUSED_PU", "KERNELS",
            "SMALL_SOLVE_MAX_N", "gemm", "update", "trsm", "lu_panel",
@@ -96,8 +99,8 @@ CUDA_BACKEND = Backend(name="cuda", gemm=gemm, trsm=trsm, update=update,
                        panel_fns=PANEL_KERNELS, fused_pu=FUSED_PU)
 
 #: Every kernel wrapper, by the name its launch count goes under (``gemm``
-#: and ``update`` share the GEMM kernel's count); all but the last are the
-#: backend's.
+#: and ``update`` share the GEMM kernel's count); all but the last two are
+#: the backend's.
 KERNELS = {
     "gemm_accum": _bg.gemm_accum,
     "trsm": _tr.trsm,
@@ -111,6 +114,7 @@ KERNELS = {
     "fused_lu_panel_update": _fpu.fused_lu_panel_update,
     "fused_cholesky_panel_update": _fpu.fused_cholesky_panel_update,
     "flash_attention": _attn.flash_attention,
+    "wkv6_fused": _wkv.wkv6_fused,
 }
 
 

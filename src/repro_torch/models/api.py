@@ -1,4 +1,5 @@
-"""Model API of the port: one surface for the archs it runs.
+"""Model API of the port: one surface for the archs it runs (the dense
+decoder and RWKV6).
 
 The port of :mod:`repro.models.api` for serving:
 
@@ -77,17 +78,28 @@ def prefill(cfg: ModelConfig, params, batch, max_len: int):
     return logits, cache
 
 
+def _cache_length(cache):
+    """The slot count of the first cache with position slots; None when no
+    layer has any (an RWKV cache holds O(1) state, with no length)."""
+    for seg in cache.values():
+        for layer in seg.values():
+            if "pos" in layer:
+                return layer["pos"].shape[-1]
+    return None
+
+
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int):
     """One new token per sequence.  tokens: (B, 1); pos: its position.
-    Writes the token's keys and values into ``cache`` in place."""
+    Writes the token's keys and values (or, for RWKV, the new state) into
+    ``cache`` in place."""
     _decoder_only(cfg)
     no_tf32()
     device = device_of(params)
     tokens = _tokens(tokens, device)
     pos = int(pos)
-    max_len = next(iter(cache.values()))["c0"]["pos"].shape[-1]
-    if not 0 <= pos < max_len:
+    max_len = _cache_length(cache)
+    if pos < 0 or (max_len is not None and pos >= max_len):
         raise ValueError(f"position {pos} outside the cache (length "
                          f"{max_len})")
     positions = torch.full((tokens.shape[0], 1), pos, dtype=torch.int32,

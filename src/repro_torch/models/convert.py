@@ -7,7 +7,9 @@ The port's params keep the reference's tree and layouts (``embed/tok``,
 tree of NumPy arrays taken from the reference (``jax.tree.map(np.asarray,
 params)``) carries across leaf by leaf.  bfloat16 arrays (NumPy's
 ``ml_dtypes`` type) carry their bits; :func:`params_to_numpy` returns
-bfloat16 leaves as float32, since NumPy has no bfloat16 of its own.
+bfloat16 leaves as float32, since NumPy has no bfloat16 of its own.  A leaf
+whose spec names its own dtype (RWKV's float32 ``w0``, ``wa``, ``wb``,
+``u`` in a bfloat16 model) keeps it both ways.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 __all__ = ["init_params", "params_from_numpy", "params_to_numpy"]
@@ -41,8 +44,9 @@ def _leaf(arr, dtype, device) -> torch.Tensor:
 
 
 def params_from_numpy(cfg: ModelConfig, params_np: dict, device=None):
-    """The reference's param tree (NumPy leaves) as the port's params, in
-    ``cfg.dtype`` on ``device``; raises ``ValueError`` on a missing or
+    """The reference's param tree (NumPy leaves) as the port's params on
+    ``device``, each in its spec's dtype (``cfg.dtype`` unless the spec
+    names another); raises ``ValueError`` on a missing or
     extra key or a shape that differs from the config's."""
     device = resolve_device(device)
     dtype = T.dtype_of(cfg)
@@ -62,7 +66,7 @@ def params_from_numpy(cfg: ModelConfig, params_np: dict, device=None):
             if shape != tuple(leaf[0]):
                 raise ValueError(f"params{where}: shape {shape}, expected "
                                  f"{tuple(leaf[0])}")
-            out[name] = _leaf(tree[name], dtype, device)
+            out[name] = _leaf(tree[name], L.leaf_dtype(leaf, dtype), device)
         return out
 
     return walk(T.param_spec(cfg), params_np, "")

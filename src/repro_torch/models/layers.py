@@ -7,7 +7,8 @@ reference's names and layouts (``wq`` is ``(d, h·hd)``, ...); each
 and ``init_*`` fills them from a ``torch.Generator``.
 
 Numerics follow the reference: params in ``cfg.dtype`` (bfloat16 by
-default), norms, softmax and attention in float32, products accumulated in
+default; a spec leaf may name its own, as RWKV's float32 decay params
+do), norms, softmax and attention in float32, products accumulated in
 float32 (:func:`repro_torch.core.backend.no_tf32` keeps the library
 products at full precision), logits in float32.
 
@@ -26,7 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.attention import NEG_INF, flash_attention
 
-__all__ = ["truncated_normal", "materialize", "rmsnorm", "layernorm",
+__all__ = ["truncated_normal", "full", "leaf_dtype", "materialize", "rmsnorm", "layernorm",
            "apply_norm", "norm_spec", "init_norm", "rope", "chunked_attention",
            "decode_attention", "attention_spec", "init_attention",
            "attention_qkv", "attention_out", "mlp_spec", "init_mlp",
@@ -54,23 +55,37 @@ def truncated_normal(out: torch.Tensor, scale: float,
     return out
 
 
+def full(value: float) -> tuple:
+    """The ``init`` of a leaf filled with the constant ``value``."""
+    return ("full", float(value))
+
+
+def leaf_dtype(leaf: tuple, dtype: torch.dtype) -> torch.dtype:
+    """A spec leaf's own dtype, else the model's ``dtype``."""
+    return leaf[2] if len(leaf) > 2 else dtype
+
+
 def materialize(spec: dict, dtype: torch.dtype, device,
                 generator: torch.Generator, lead: tuple = ()) -> dict:
-    """Tensors for a (nested) spec of ``(shape, init)`` leaves, each with
-    ``lead`` prepended to its shape; ``init`` is ``"ones"``, ``"zeros"``
-    or a float: the scale of a truncated normal."""
+    """Tensors for a (nested) spec of ``(shape, init[, dtype])`` leaves,
+    each with ``lead`` prepended to its shape, in the leaf's dtype if it
+    names one (the float32 leaves of a bfloat16 RWKV block), else in
+    ``dtype``; ``init`` is ``"ones"``, ``"zeros"``, :func:`full` of a
+    constant or a float: the scale of a truncated normal."""
     out = {}
     for name, leaf in spec.items():
         if isinstance(leaf, dict):
             out[name] = materialize(leaf, dtype, device, generator, lead)
             continue
-        shape, init = leaf
-        t = torch.empty(tuple(lead) + tuple(shape), dtype=dtype,
-                        device=device)
+        shape, init = leaf[:2]
+        t = torch.empty(tuple(lead) + tuple(shape),
+                        dtype=leaf_dtype(leaf, dtype), device=device)
         if init == "ones":
             t.fill_(1.0)
         elif init == "zeros":
             t.zero_()
+        elif isinstance(init, tuple):
+            t.fill_(init[1])
         else:
             truncated_normal(t, float(init), generator)
         out[name] = t

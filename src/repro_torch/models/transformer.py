@@ -1,21 +1,27 @@
-"""Decoder backbone: dense attention blocks, segment loops, the KV cache.
+"""Decoder backbone: dense attention and RWKV6 blocks, segment loops, the
+caches.
 
-The port of :mod:`repro.models.transformer` for dense attention blocks.
+The port of :mod:`repro.models.transformer` for dense attention blocks and
+RWKV6 blocks.
 Layers are grouped into :class:`repro_torch.configs.base.Segment` runs of
 identical structure; each segment's params are stacked on a leading layer
 axis, as in the reference, and a Python loop walks the layers (the
 reference's ``lax.scan``).  Nothing here takes a gradient, so there is no
 remat.
 
-Cache model (decode): ``attn`` — a dense KV cache ``(B, G, W, hd)`` ×2 and
-per-slot positions ``(B, W)``, ``-1`` where unfilled, stacked per segment
-like the params.  Where the reference returns a new cache, the port writes
-the new keys and values into the cache's tensors in place and returns the
-same dict.
+Cache model (decode), stacked per segment like the params:
+
+* ``attn`` — a dense KV cache ``(B, G, W, hd)`` ×2 and per-slot positions
+  ``(B, W)``, ``-1`` where unfilled;
+* ``rwkv`` — the WKV matrix state ``s (B, H, dk, dk)`` in float32 and the
+  token-shift tails ``x_tm``, ``x_cm (B, 1, d)``: O(1) state, no length.
+
+Where the reference returns a new cache, the port writes the new keys and
+values, or the new state, into the cache's tensors in place and returns
+the same dict.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``local`` blocks and the ring cache, ``rg`` (RG-LRU), ``rwkv``
-(RWKV6, with the ``wkv6_fused`` kernel), and MoE MLPs.
+item): ``local`` blocks and the ring cache, ``rg`` (RG-LRU), and MoE MLPs.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, Segment, layer_plan
 from repro_torch.models import layers as L
+from repro_torch.models import rwkv6 as RWKV
 
 __all__ = ["dtype_of", "layer_param_spec", "param_spec", "init_layer",
            "init_params", "init_layer_cache", "init_cache", "layer_forward",
@@ -32,8 +39,6 @@ _TODO = {
     "local": "local (sliding-window) attention and its ring cache: "
              "ROADMAP Queue 1 item 18",
     "rg": "RG-LRU blocks: ROADMAP Queue 1 item 18",
-    "rwkv": "RWKV6 blocks (and the wkv6_fused kernel): ROADMAP Queue 1 "
-            "item 18, the next slice",
     "moe": "MoE MLPs: ROADMAP Queue 1 item 18",
 }
 
@@ -47,7 +52,7 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_spec(spec: LayerSpec) -> None:
-    if spec.block != "attn":
+    if spec.block not in ("attn", "rwkv"):
         raise _unported(spec.block if spec.block in _TODO else "rg")
     if spec.mlp == "moe":
         raise _unported("moe")
@@ -57,9 +62,11 @@ def _check_spec(spec: LayerSpec) -> None:
 # Params
 # ---------------------------------------------------------------------------
 def layer_param_spec(cfg: ModelConfig, spec: LayerSpec) -> dict:
-    """Shapes and initialisers of one layer's params (``(shape, init)``
-    leaves, see :func:`repro_torch.models.layers.materialize`)."""
+    """Shapes and initialisers of one layer's params (``(shape, init[,
+    dtype])`` leaves, see :func:`repro_torch.models.layers.materialize`)."""
     _check_spec(spec)
+    if spec.block == "rwkv":     # LayerSpec("rwkv", "none"): all in the block
+        return {"rwkv": RWKV.rwkv_spec(cfg)}
     p = {"norm1": L.norm_spec(cfg), "attn": L.attention_spec(cfg)}
     if spec.mlp == "dense":
         p["norm2"] = L.norm_spec(cfg)
@@ -83,8 +90,7 @@ def param_spec(cfg: ModelConfig) -> dict:
 def _stack(spec, lead):
     if isinstance(spec, dict):
         return {k: _stack(v, lead) for k, v in spec.items()}
-    shape, init = spec
-    return (tuple(lead) + tuple(shape), init)
+    return (tuple(lead) + tuple(spec[0]),) + tuple(spec[1:])
 
 
 def init_layer(cfg: ModelConfig, spec: LayerSpec, generator, device,
@@ -94,7 +100,8 @@ def init_layer(cfg: ModelConfig, spec: LayerSpec, generator, device,
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device):
-    """Random params, segment-stacked, in ``cfg.dtype`` on ``device``."""
+    """Random params, segment-stacked, on ``device``: in ``cfg.dtype``
+    except the leaves whose spec names their own dtype."""
     return L.materialize(param_spec(cfg), dtype_of(cfg), device, generator)
 
 
@@ -103,10 +110,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device):
 # ---------------------------------------------------------------------------
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, device, lead=()):
-    if spec.block != "attn":
-        raise _unported(spec.block if spec.block in _TODO else "rg")
-    g, hd = cfg.num_kv_heads, cfg.head_dim
+    _check_spec(spec)
     lead = tuple(lead)
+    if spec.block == "rwkv":
+        h = cfg.num_heads
+        dk = cfg.d_model // h
+        tail = lead + (batch, 1, cfg.d_model)
+        return {"s": torch.zeros(lead + (batch, h, dk, dk),
+                                 dtype=torch.float32, device=device),
+                "x_tm": torch.zeros(tail, dtype=dtype_of(cfg), device=device),
+                "x_cm": torch.zeros(tail, dtype=dtype_of(cfg), device=device)}
+    g, hd = cfg.num_kv_heads, cfg.head_dim
     kv = lead + (batch, g, max_len, hd)
     return {
         "k": torch.zeros(kv, dtype=dtype_of(cfg), device=device),
@@ -174,17 +188,31 @@ def _attn_decode(cfg, spec, p, x, positions, cache):
     return x + L.attention_out(cfg, p["attn"], ctx), cache
 
 
+def _rwkv(cfg, p, x, cache, mode):
+    """The RWKV6 block: train and prefill from zero state, decode from the
+    cache's; prefill and decode write the new state into the cache's
+    tensors in place."""
+    x, st = RWKV.rwkv_block(cfg, p["rwkv"], x,
+                            cache if mode == "decode" else None)
+    if mode != "train":
+        for name in ("s", "x_tm", "x_cm"):
+            cache[name].copy_(st[name])
+    return x, cache
+
+
 def layer_forward(cfg, spec, p, x, positions, cache=None, mode="train"):
     """Returns (x, new_cache)."""
     _check_spec(spec)
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if spec.block == "rwkv":
+        return _rwkv(cfg, p, x, cache, mode)
     if mode == "train":
         x = _attn_train(cfg, spec, p, x, positions)
     elif mode == "prefill":
         x, cache = _attn_prefill(cfg, spec, p, x, positions, cache)
-    elif mode == "decode":
-        x, cache = _attn_decode(cfg, spec, p, x, positions, cache)
     else:
-        raise ValueError(f"unknown mode {mode!r}")
+        x, cache = _attn_decode(cfg, spec, p, x, positions, cache)
     if spec.mlp == "dense":
         x = x + L.mlp_block(cfg, p["mlp"], L.apply_norm(cfg, x, p["norm2"]))
     return x, cache

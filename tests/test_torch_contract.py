@@ -63,6 +63,8 @@ def test_no_source_file_imports_jax_or_the_reference():
             PORT / "configs" / "base.py", PORT / "configs" / "registry.py",
             PORT / "models" / "layers.py", PORT / "models" / "transformer.py",
             PORT / "models" / "api.py", PORT / "models" / "convert.py",
+            PORT / "models" / "rwkv6.py", PORT / "kernels" / "wkv6.py",
+            PORT / "configs" / "rwkv6_7b.py",
             PORT / "obs" / "metrics.py", PORT / "serve" / "engine.py",
             PORT / "serve" / "metrics.py",
             PORT / "launch" / "serve.py"} <= set(files)
@@ -80,7 +82,8 @@ def test_no_source_file_imports_jax_or_the_reference():
                                    "qrcp_from_numpy", "gehrd", "gecon",
                                    "getri", "hessenberg_from_numpy",
                                    "init_params", "init_decode_cache",
-                                   "params_from_numpy", "serve_main"])
+                                   "params_from_numpy", "serve_main",
+                                   "serve_rwkv"])
 def test_entry_points_default_to_the_gpu_and_raise_without_one(
         monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -116,6 +119,8 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(
             small, convert.params_to_numpy(
                 api.init_params(small, 0, device="cpu"))),
         "serve_main": lambda: launch_serve.main(["--smoke"]),
+        "serve_rwkv": lambda: launch_serve.main(["--arch", "rwkv6-7b",
+                                                 "--smoke"]),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -131,14 +136,15 @@ def test_explicit_cpu_runs_and_returns_cpu_tensors(driver):
 def test_every_kernel_source_is_built_and_counted():
     assert set(_build.sources()) == {"gemm", "trsm", "panel_lu", "fused_pu",
                                      "panel_qr", "panel_qrcp",
-                                     "panel_hessenberg", "flash_attention"}
+                                     "panel_hessenberg", "flash_attention",
+                                     "wkv6"}
     from repro_torch.kernels import ops
     assert set(ops.KERNELS) == {"gemm_accum", "trsm", "lu_panel",
                                 "lu_solve_small", "trsm_right_lower_t",
                                 "fused_lu_panel_update",
                                 "fused_cholesky_panel_update", "qr_panel",
                                 "larft", "qrcp_panel", "hessenberg_panel",
-                                "flash_attention"}
+                                "flash_attention", "wkv6_fused"}
 
 
 def test_ptxas_summary_parses_a_verbose_log():

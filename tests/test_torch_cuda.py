@@ -8,7 +8,8 @@ terms summed per element (the panel bitwise; the fused panel updates
 bitwise against the kernels they replace; the QR and QRCP panels, whose
 reductions group differently from their plain versions, within
 4·max(m,nb,8)·eps, pivots equal; the Hessenberg panel within 4·c·eps, c
-the longest chain of terms it sums for one element);
+the longest chain of terms it sums for one element; flash attention and
+WKV6 within elementwise bounds of their plain versions run in float64);
 whole solves keep the reference's 200·max(m,n,8)·eps, and every schedule
 of LU, Cholesky, QR, ``qrcp_local`` and Hessenberg gives bitwise the
 factors of ``mtb``.  Marked ``cuda``;
@@ -28,7 +29,7 @@ from repro_torch.kernels import attention as attn
 from repro_torch.models import api
 from repro_torch.models import layers as L
 from repro_torch.kernels import blis_gemm, ops, panel_hessenberg, \
-    panel_lu, panel_qr, panel_qrcp, trsm
+    panel_lu, panel_qr, panel_qrcp, trsm, wkv6
 from repro_torch.kernels import fused_panel_update as fpu
 from repro_torch.solve import cholesky_factor, gecon, gehrd, geqp3, gels, \
     gesv, getri, lu_factor, posv, qr_factor
@@ -637,3 +638,108 @@ def test_reduced_phi3_on_the_card_matches_the_cpu(card):
         assert float((lg[:, 0].cpu() - full_cpu[:, 64 + i]).abs().max()) \
             <= tol
     assert ops.launches()["flash_attention"] == cfg.num_layers
+
+
+def _wkv_inputs(b, h, s, d, dtype, device, seed):
+    """r, k, v ~ N(0, 1) in ``dtype``; decays like the served model's,
+    log w = -exp(-0.6 + 0.42 z); u ~ 0.5 N(0, 1); s0 ~ N(0, 1)."""
+    g = np.random.default_rng(seed)
+
+    def t(x, dt=torch.float32):
+        return torch.tensor(x, dtype=dt, device=device)
+
+    r, k, v = (t(g.standard_normal((b, h, s, d)), dtype) for _ in range(3))
+    logw = t(-np.exp(-0.6 + 0.42 * g.standard_normal((b, h, s, d))))
+    return r, k, v, logw, t(0.5 * g.standard_normal((h, d))), \
+        t(g.standard_normal((b, h, d, d)))
+
+
+def _wkv_ratio(got, want, tol):
+    return float(((got.double() - want).abs() / tol).max())
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("b,h,s,d,chunk,with_s0", [
+    (1, 2, 128, 64, 128, False), (2, 3, 1000, 64, 128, True),
+    (2, 4, 40, 32, 16, True), (1, 2, 300, 32, 64, False),
+    (1, 1, 5, 64, 128, True)])
+def test_wkv6_matches_plain(card, dtype, b, h, s, d, chunk, with_s0):
+    # the kernel within wkv6_expect's bound of the plain version run in
+    # float64 (the cumsum's rounding reaches the exponents; see there), and
+    # the plain version at the input dtype, as the CPU path runs it
+    r, k, v, logw, u, s0 = _wkv_inputs(b, h, s, d, dtype, card, 70 + s)
+    s0 = s0 if with_s0 else None
+    before = wkv6.wkv6_fused.launches
+    got, st = wkv6.wkv6_fused(r, k, v, logw, u, s0=s0, chunk=chunk)
+    assert wkv6.wkv6_fused.launches == before + 1
+    assert got.dtype == st.dtype == torch.float32
+    want, tol, s_want, s_tol = wkv6.wkv6_expect(r, k, v, logw, u, s0=s0,
+                                                chunk=chunk)
+    assert _wkv_ratio(got, want, tol) <= 1.0
+    assert _wkv_ratio(st, s_want, s_tol) <= 1.0
+    plain, plain_st = wkv6.wkv6_fused_plain(r, k, v, logw, u, s0=s0,
+                                            chunk=chunk)
+    assert _wkv_ratio(plain, want, tol) <= 1.0
+    assert _wkv_ratio(plain_st, s_want, s_tol) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_wkv6_bound_catches_planted_faults_and_splits_bitwise(card, dtype):
+    # the state dropped at a chunk boundary, the diagonal taken into the
+    # score mask and the ragged tail left unwritten each exceed the bound;
+    # a run split at a chunk boundary equals the unsplit one bitwise
+    b, h, s, d, c = 2, 4, 1000, 64, 128
+    r, k, v, logw, u, s0 = _wkv_inputs(b, h, s, d, dtype, card, 80)
+    want, tol, _, _ = wkv6.wkv6_expect(r, k, v, logw, u, s0=s0, chunk=c)
+    got, st = wkv6.wkv6_fused(r, k, v, logw, u, s0=s0, chunk=c)
+    assert _wkv_ratio(got, want, tol) <= 1.0
+    head = [x[:, :, :512] for x in (r, k, v, logw)]
+    rest = [x[:, :, 512:] for x in (r, k, v, logw)]
+    o1, s1 = wkv6.wkv6_fused(*head, u, s0=s0, chunk=c)
+    o2, s2 = wkv6.wkv6_fused(*rest, u, s0=s1, chunk=c)
+    assert torch.equal(torch.cat([o1, o2], 2), got) and torch.equal(s2, st)
+    for name, bad in wkv6.wkv6_faults(r, k, v, logw, u, got, s0=s0, chunk=c,
+                                      split_at=512).items():
+        assert _wkv_ratio(bad, want, tol) > 1.0, name
+
+
+def test_wkv6_refuses_what_the_kernel_does_not_take(card):
+    r, k, v, logw, u, _ = _wkv_inputs(1, 2, 64, 64, torch.float32, card, 90)
+    with pytest.raises(ValueError, match="head dims"):
+        wkv6.wkv6_fused(r[..., :48], k[..., :48], v[..., :48],
+                        logw[..., :48], u[:, :48])
+    with pytest.raises(ValueError, match="dtypes"):
+        wkv6.wkv6_fused(r.double(), k.double(), v.double(), logw, u)
+    with pytest.raises(ValueError, match="float32"):
+        wkv6.wkv6_fused(r, k, v, logw.double(), u)
+    longer = [torch.cat([x, x, x], 2) for x in (r, k, v, logw)]
+    with pytest.raises(ValueError, match="exceeds"):
+        wkv6.wkv6_fused(*longer, u, chunk=192)
+
+
+def test_reduced_rwkv_on_the_card_matches_the_cpu(card):
+    # the RWKV serving path on the card (WKV kernel, cuBLAS) against the
+    # same path on the CPU (plain versions), float32, a ragged prompt:
+    # summation order only, so 1e-4 of the largest |logit|
+    cfg = reduced_config(get_config("rwkv6-7b"))
+    params = api.init_params(cfg, 0, device=card)
+
+    def to_cpu(tree):
+        return {k: to_cpu(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+
+    cpu_params = to_cpu(params)
+    toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 48))
+    full_cpu = api.apply(cfg, cpu_params, {"tokens": toks})
+    tol = 1e-4 * float(full_cpu.abs().max())
+    ops.reset_launches()
+    full = api.apply(cfg, params, {"tokens": toks})
+    assert float((full.cpu() - full_cpu).abs().max()) <= tol
+    lg, cache = api.prefill(cfg, params, {"tokens": toks[:, :40]},
+                            max_len=48)
+    for i in range(3):
+        lg, cache = api.decode_step(cfg, params, cache,
+                                    toks[:, 40 + i:41 + i], 40 + i)
+        assert float((lg[:, 0].cpu() - full_cpu[:, 40 + i]).abs().max()) \
+            <= tol
+    assert ops.launches()["wkv6_fused"] == 2 * cfg.num_layers

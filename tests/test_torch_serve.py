@@ -24,7 +24,7 @@ from repro.configs import reduced_config as ref_reduced_config
 from repro.configs.registry import ARCH_IDS as REF_ARCH_IDS
 from repro.models import api as ref_api
 from repro.obs import metrics as ref_metrics
-from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs import MoESpec, get_config, reduced_config
 from repro_torch.configs.registry import ARCH_IDS
 from repro_torch.kernels import attention as attn
 from repro_torch.launch import serve as launch_serve
@@ -82,14 +82,16 @@ def run(cfgs):
     return out
 
 
-def test_configs_equal_the_reference():
-    assert dataclasses.asdict(get_config(ARCH)) == \
-        dataclasses.asdict(ref_get_config(ARCH))
-    assert dataclasses.asdict(reduced_config(get_config(ARCH))) == \
-        dataclasses.asdict(ref_reduced_config(ref_get_config(ARCH)))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_configs_equal_the_reference(arch):
+    assert dataclasses.asdict(get_config(arch)) == \
+        dataclasses.asdict(ref_get_config(arch))
+    assert dataclasses.asdict(reduced_config(get_config(arch))) == \
+        dataclasses.asdict(ref_reduced_config(ref_get_config(arch)))
 
 
-@pytest.mark.parametrize("arch", [a for a in REF_ARCH_IDS if a != ARCH])
+@pytest.mark.parametrize("arch", [a for a in REF_ARCH_IDS
+                                  if a not in ARCH_IDS])
 def test_registry_refuses_archs_not_ported(arch):
     assert arch not in ARCH_IDS
     with pytest.raises(KeyError, match="Queue 1 item 18"):
@@ -220,7 +222,8 @@ def test_engine_and_api_refuse_what_the_cache_cannot_hold(run, cfgs):
 
 
 @pytest.mark.parametrize("change", [
-    {"pattern": ("rwkv",)}, {"pattern": ("local",), "local_window": 32},
+    {"moe": MoESpec(num_experts=4, top_k=2, d_ff_expert=64)},
+    {"pattern": ("local",), "local_window": 32},
     {"pattern": ("rg",)}, {"encoder_layers": 2}])
 def test_unported_blocks_raise_naming_their_item(cfgs, change):
     cfg = dataclasses.replace(cfgs[1], **change)
