@@ -16,7 +16,11 @@
    with its time, the plain version's, one library call's (or, for the
    fused panel updates, which no one library call computes, the composed
    kernels' they replace) and the bound (bytes or operations) for the
-   same work.  The fused panel
+   same work.  The GEMM prints the split it chose (chunks of K, their
+   mapping onto blocks, the tile) and is held bitwise to its contract run
+   one thread an element with one FMA a term (in float64 the check that its
+   DMMA steps keep the DFMA chain), and the gels PU's V^T C (and the
+   solve's V^T B) bitwise to the whole update's first columns.  The fused panel
    updates are held bitwise to the composed kernels, pivots included; the
    QR, QRCP and Hessenberg panels within 4·k·eps of their plain versions,
    k the longest chain of terms the kernel sums for one element, QRCP
@@ -335,7 +339,11 @@ def main() -> int:
 
         def gemm_row(c, a, b):
             """The GEMM kernel, ``C − A·B`` (``A·B`` where ``c`` is None),
-            against its plain version, one cuBLAS call and the bound."""
+            against its plain version, one cuBLAS call and the bound; the
+            split it chose (chunks of K, their mapping onto blocks, the
+            tile); bitwise equal to its contract run one thread an element
+            with one FMA a term (``gemm_chain``: in float64 the check that
+            the DMMA steps keep the DFMA chain)."""
             mm, k = a.shape
             nn = b.shape[1]
             out = torch.empty(mm, nn, dtype=dtype, device=dev)
@@ -360,10 +368,20 @@ def main() -> int:
                 def lib():
                     return torch.addmm(c, a, b, alpha=-1, out=lib_out)
             got = run()
+            chain = blis_gemm.gemm_chain(c, a, b, alpha=1.0 if c is None
+                                         else -1.0,
+                                         beta=0.0 if c is None else 1.0)
             sync()
+            check(torch.equal(got, chain), f"gemm {dtype} {mm}x{k}x{nn}: "
+                  "not bitwise equal to its FMA-chain contract")
+            del chain
+            split = blis_gemm.plan(mm, nn, k, dtype)
+            check(split["kc"] == blis_gemm.KC, f"gemm: the kernel's KC "
+                  f"{split['kc']} is not the plain version's {blis_gemm.KC}")
             err, mx = compare(got, plain())
             return dict(
-                shape=[mm, k, nn], rel_err=err, max_abs_err=mx,
+                shape=[mm, k, nn], split=split,
+                bitwise_equal_to_chain=True, rel_err=err, max_abs_err=mx,
                 tol=tolerance(dtype, k), ms=time_ms(run, 10),
                 plain_ms=time_ms(plain, 3 if k <= BLOCK else 1),
                 library_ms=time_ms(lib, 10),
@@ -383,12 +401,23 @@ def main() -> int:
         # each summing K = QR_M terms an element; and global QRCP's update
         # A2 -= V2 F^T (K = BLOCK; QR's C -= V W has the same K and 128
         # rows more)
+        # The PU's product is the whole update's first BLOCK columns (and the
+        # solve's V^T B its first NRHS): bitwise equal, whatever the split's
+        # tile and mapping for each.
         nc = QR_N - BLOCK
-        vt = randn(BLOCK, QR_M)
-        res["gemm_gels_vtc"] = gemm_row(None, vt, randn(QR_M, nc))
-        res["gemm_gels_vtc_pu"] = gemm_row(None, vt, randn(QR_M, BLOCK))
-        res["gemm_gels_vtb"] = gemm_row(None, vt, randn(QR_M, NRHS))
-        del vt
+        vt, c_all = randn(BLOCK, QR_M), randn(QR_M, nc)
+        res["gemm_gels_vtc"] = gemm_row(None, vt, c_all)
+        res["gemm_gels_vtc_pu"] = gemm_row(None, vt, c_all[:, :BLOCK])
+        res["gemm_gels_vtb"] = gemm_row(None, vt, c_all[:, :NRHS])
+        whole = blis_gemm.gemm(vt, c_all)
+        for key, cols in (("gemm_gels_vtc_pu", BLOCK),
+                          ("gemm_gels_vtb", NRHS)):
+            got = blis_gemm.gemm(vt, c_all[:, :cols])
+            sync()
+            check(torch.equal(whole[:, :cols], got), f"gemm {dtype}: V^T C "
+                  f"on {cols} columns not bitwise the whole update's")
+            res[key]["bitwise_equal_to_whole"] = True
+        del vt, c_all, whole, got
         res["gemm_accum_qrcp"] = gemm_row(randn(QR_M - BLOCK, nc),
                                           randn(QR_M - BLOCK, BLOCK),
                                           randn(BLOCK, nc))
@@ -1769,9 +1798,10 @@ def main() -> int:
         out = {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
-        for key in ("composed_ms", "window", "k_half", "n_rtm"):
+        for key in ("composed_ms", "split", "window", "k_half", "n_rtm"):
             if key in r:
-                out[key] = r[key] if key == "composed_ms" else numbers(r[key])
+                out[key] = r[key] if key in ("composed_ms", "split") \
+                    else numbers(r[key])
         return out
 
     def at_shape(key):   # float64 at the top level, float32 beside it

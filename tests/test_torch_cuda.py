@@ -98,6 +98,107 @@ def test_gemm_is_column_decomposable_bitwise(card):
     assert torch.equal(whole[37:, 71:], part)
 
 
+KC = blis_gemm.KC
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k,n", [(16384, 16), (16384, 128), (16384, 300),
+                                 (3 * KC + 37, 300)])
+def test_gemm_deep_k_matches_plain(card, dtype, k, n):
+    a = _randn((128, k), dtype, card, 20)
+    b = _randn((k, n), dtype, card, 21)
+    c = _randn((128, n), dtype, card, 22)
+    before = blis_gemm.gemm_accum.launches
+    got = blis_gemm.gemm_accum(c, a, b)
+    assert blis_gemm.gemm_accum.launches == before + 1   # reduction included
+    assert _rel(got, blis_gemm.gemm_accum_plain(c, a, b)) \
+        < _kernel_tol(dtype, k)
+    assert _rel(blis_gemm.gemm(a, b),
+                blis_gemm.gemm_accum_plain(None, a, b, alpha=1.0, beta=0.0)) \
+        < _kernel_tol(dtype, k)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gemm_look_ahead_pu_is_bitwise_the_whole_update(card, dtype):
+    # gels' first panel: V^T C over the trailing 3968 columns, and under la
+    # the same product on the next panel's 128 columns (and V^T B on 16)
+    vt = _randn((128, 16384), dtype, card, 23)
+    c = _randn((16384, 3968), dtype, card, 24)
+    whole = blis_gemm.gemm(vt, c)
+    for cols in (128, 16):
+        assert torch.equal(whole[:, :cols], blis_gemm.gemm(vt, c[:, :cols]))
+    assert blis_gemm.plan(128, 3968, 16384, dtype)["tile"] \
+        != blis_gemm.plan(128, 128, 16384, dtype)["tile"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gemm_chunk_mappings_give_the_same_bits(card, dtype):
+    # 2048 x 2048 fills the card with large tiles (each block loops over the
+    # three chunks); its 128-column and 128-row slices take small tiles with
+    # the chunks on separate blocks and a second summing kernel
+    k = 2 * KC + 37
+    c = _randn((2048, 2048), dtype, card, 25)
+    a = _randn((2048, k), dtype, card, 26)
+    b = _randn((k, 2048), dtype, card, 27)
+    assert blis_gemm.plan(2048, 2048, k, dtype)["kc"] == KC   # the kernel's
+    assert blis_gemm.plan(2048, 2048, k, dtype)["mapping"] == "in_block"
+    assert blis_gemm.plan(2048, 128, k, dtype)["mapping"] == "across"
+    assert blis_gemm.plan(128, 2048, k, dtype)["mapping"] == "across"
+    whole = blis_gemm.gemm_accum(c, a, b)
+    assert torch.equal(whole[:, 40:168],
+                       blis_gemm.gemm_accum(c[:, 40:168], a, b[:, 40:168]))
+    assert torch.equal(whole[1000:1128],
+                       blis_gemm.gemm_accum(c[1000:1128], a[1000:1128], b))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gemm_deep_k_is_deterministic(card, dtype):
+    a = _randn((128, 16384), dtype, card, 28)
+    b = _randn((16384, 3968), dtype, card, 29)
+    assert torch.equal(blis_gemm.gemm(a, b), blis_gemm.gemm(a, b))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gemm_deep_k_in_place_on_strided_views(card, dtype):
+    k = 3 * KC + 37
+    big = _randn((300, 400), dtype, card, 30)
+    a = _randn((290, k + 5), dtype, card, 31)[:, 5:]     # ld k + 5, offset 5
+    b = _randn((k, 390), dtype, card, 32)[:, 3:]         # offset 3
+    c = big[10:, 13:]                                    # ld 400, offset 13
+    ref = blis_gemm.gemm_accum_plain(c, a, b)
+    got = blis_gemm.gemm_accum(c, a, b, out=c)
+    assert got.data_ptr() == c.data_ptr()
+    assert _rel(c, ref) < _kernel_tol(dtype, k)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,k,n,beta", [(100, 16, 90, 1.0), (300, 128, 257, 1.0),
+                                        (128, 16384, 16, 0.0),
+                                        (128, 3 * KC + 37, 300, 1.0),
+                                        (8064, 128, 8064, 1.0),
+                                        (2048, 2 * KC + 37, 2048, 0.0)])
+@pytest.mark.parametrize("wide", [False, True])
+def test_gemm_is_bitwise_its_fma_chain_contract(card, dtype, m, k, n, beta,
+                                                wide):
+    """The tile kernel (float64: DMMA, mma.sync m16n8k4) against the
+    contract run one thread an element with one FMA a term: bitwise, on
+    normal data and on data whose exponents spread over ±40 binades, where
+    any regrouping of a DMMA step's four terms would show."""
+    a = _randn((m, k), dtype, card, 33)
+    b = _randn((k, n), dtype, card, 34)
+    c = _randn((m, n), dtype, card, 35) if beta else None
+    if wide:
+        gen = np.random.default_rng(36)
+        a = a * torch.tensor(np.exp2(gen.integers(-20, 20, (m, k))),
+                             dtype=dtype, device=card)
+        b = b * torch.tensor(np.exp2(gen.integers(-20, 20, (k, n))),
+                             dtype=dtype, device=card)
+    alpha = -1.0 if beta else 1.0
+    got = blis_gemm.gemm_accum(c, a, b) if beta else blis_gemm.gemm(a, b)
+    want = blis_gemm.gemm_chain(c, a, b, alpha=alpha, beta=beta)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("nb,w", [(1, 5), (16, 33), (128, 300), (256, 40)])
 @pytest.mark.parametrize("lower,unit", [(True, True), (False, False)])
