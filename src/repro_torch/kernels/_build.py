@@ -127,6 +127,29 @@ def ptxas_summary(log: str) -> list[dict]:
     return out
 
 
+_SASS_FN = re.compile(r"Function : (\S+)")
+_SASS_MMA = re.compile(r"\b(HGMMA|HMMA|DMMA)\.")
+
+
+def sass_mma_counts(name: str) -> dict[str, int]:
+    """Tensor-core instructions (``HGMMA``, ``HMMA``, ``DMMA``) in the SASS
+    of each kernel of the built ``csrc/<name>.cu``, by mangled kernel name,
+    from ``cuobjdump -sass`` (beside ``nvcc``)."""
+    cuobjdump = Path(nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_target(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out, cur = {}, None
+    for line in sass.splitlines():
+        m = _SASS_FN.search(line)
+        if m:
+            cur = m.group(1)
+            out[cur] = 0
+        elif cur is not None and _SASS_MMA.search(line):
+            out[cur] += 1
+    return out
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built if needed."""
     with _LOCK:
@@ -160,6 +183,13 @@ def stream_of(device: torch.device) -> ctypes.c_void_p:
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return c_ptr(t.data_ptr())
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous and 16-byte aligned (for 16-byte vector loads and TMA):
+    a copy of a view that is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 # ---------------------------------------------------------------------------

@@ -2,18 +2,26 @@
 
 Kernel: ``csrc/flash_attention.cu`` (CUDA C++ for sm_90a), replacing the
 TPU kernel ``repro/kernels/attention.py::flash_attention``.  The source
-note there says what bounds it on an H100 and how its design answers that:
-one block per (64-row query tile, batch·head) walks the KV tiles in a loop,
-carrying the running max, denominator and accumulator in registers, and
-skips the tiles the causal mask hides.  It takes float32 and bfloat16
-inputs, computes in float32, and head dims 32, 64 and 128.
+note there says what bounds it on an H100 and how its design answers that.
+bfloat16 inputs run on the tensor cores (``wgmma``): one block per
+(128-row query tile, batch·head), a producer warp bringing K and V tiles
+of 64 keys by TMA into a ring of shared-memory stages, two consumer
+warpgroups of 64 rows running Q·Kᵀ, the online softmax in registers and
+P·V with P split into a bfloat16 high and low part, so P·V keeps the TPU
+kernel's float32 P.  float32 inputs run on the CUDA cores.  Both carry the running max,
+denominator and accumulator in registers across the key tiles, skip the
+tiles the causal mask hides, and take head dims 32, 64 and 128;
+:func:`kernel_config` reports the bfloat16 kernel's tiling.
 
 The plain PyTorch version, :func:`flash_attention_plain`, runs the same
 online-softmax recurrence over ``block_q × block_k`` blocks (the reference's
-Pallas blocks by default); :func:`flash_attention` runs it on CPU tensors,
-with the chunk sizes :func:`repro_torch.models.layers.chunked_attention`
-passes.  Scores are masked with ``-1e30``, as in the reference, and
-``l == 0`` divides by 1.
+Pallas blocks by default), forming P·V from the same split for bfloat16
+inputs; :func:`flash_attention` runs it on CPU tensors, with the chunk
+sizes :func:`repro_torch.models.layers.chunked_attention` passes.  Scores
+are masked with ``-1e30``, as in the reference, and ``l == 0`` divides
+by 1.  :func:`attn_expect` gives the kernel's elementwise tolerance against
+the plain version run in float64, the bound the card's checks hold the
+kernel to, and :func:`attn_faults` two wrong outputs it must reject.
 
 The mask follows ``repro/models/layers.py::_attn_mask``: with ``causal``,
 key ``j`` is visible to query ``i`` when ``qpos[i] >= kpos[j]``.  Without
@@ -22,10 +30,10 @@ top-left mask.  :func:`attention` (the reference's ``ref.attention``)
 aligns its causal mask bottom-right, so it agrees with the kernel only for
 ``Sq == Sk``.
 
-The kernel reads contiguous ``(B, H, S, D)`` operands: the wrapper makes a
-non-contiguous view contiguous (a copy) before the launch.  There is no
-backward (nor has the Pallas kernel), so an input that requires a gradient
-is refused; ``window`` (local attention) is not ported yet and raises.
+The kernel reads contiguous, 16-byte aligned ``(B, H, S, D)`` operands:
+the wrapper copies a view that is not.  There is no backward (nor has the
+Pallas kernel), so an input that requires a gradient is refused;
+``window`` (local attention) is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -36,19 +44,25 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["flash_attention", "flash_attention_plain", "attention",
-           "NEG_INF", "HEAD_DIMS"]
+           "attn_expect", "attn_faults", "kernel_config", "NEG_INF",
+           "HEAD_DIMS"]
 
 NEG_INF = -1e30
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (32, 64, 128)
 #: input dtypes the kernel is instantiated for
 DTYPES = (torch.float32, torch.bfloat16)
+#: Higham and Mary's probabilistic rounding factor in :func:`attn_expect`
+ATTN_LAMBDA = 10.0
+#: keys of the tile :func:`attn_faults` hides (the kernel's tile)
+FAULT_TILE = 64
 _WINDOW_TODO = ("sliding-window attention is not ported yet "
                 "(ROADMAP Queue 1 item 18, local attention)")
 
 _LIB = "flash_attention"
 _ARGS = [_build.c_ptr] * 6 + [_build.c_i64] * 6 + [
     _build.c_f64, ctypes.c_int, _build.c_ptr]
+_CONFIG = ("route", "block_q", "block_k", "stages", "threads", "smem_bytes")
 
 
 def _check(q, k, v, qpos, kpos, window):
@@ -101,7 +115,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Query head ``h`` reads KV head ``h // (H // Hkv)``; ``scale`` defaults
     to ``D ** -0.5``; ``qpos``/``kpos`` are the positions the causal mask
     compares.  ``block_q``/``block_k`` are the plain version's blocks on
-    CPU tensors; the kernel walks its own 64-row tiles.  Returns
+    CPU tensors; the kernel walks its own tiles (:func:`kernel_config`).  Returns
     ``(B, H, Sq, D)`` in ``q.dtype``.
     """
     qpos, kpos = _check(q, k, v, qpos, kpos, window)
@@ -121,7 +135,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"(one of {HEAD_DIMS})")
     b, h, sq, _ = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _build.aligned(q), _build.aligned(k), _build.aligned(v)
     qpos, kpos = qpos.contiguous(), kpos.contiguous()
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -142,13 +156,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 
 
+def kernel_config(d: int = 128) -> dict:
+    """The bfloat16 kernel's tiling at head dim ``d``, as its source states
+    it: route (``wgmma``), query rows and keys a tile, K/V stages, threads
+    a block and dynamic shared memory bytes.  Loads the library."""
+    out = (ctypes.c_int64 * len(_CONFIG))()
+    fn = _build.function(_LIB, "repro_flash_attention_bf16_config",
+                         [_build.c_i64, _build.c_ptr])
+    _build.check_launch(_LIB, fn(d, ctypes.cast(out, ctypes.c_void_p)),
+                        "flash_attention config")
+    cfg = dict(zip(_CONFIG, out))
+    cfg["route"] = {1: "wgmma"}[cfg["route"]]
+    return cfg
+
+
 def flash_attention_plain(q, k, v, qpos=None, kpos=None, *, causal=True,
                           scale=None, block_q: int = 512,
                           block_k: int = 512) -> torch.Tensor:
     """The kernel's algorithm as PyTorch ops: for each ``block_q`` query
     rows, an online softmax over ``block_k`` keys at a time, all in float32
     (float64 for float64 inputs, the reference the card's checks hold the
-    kernel to).
+    kernel to).  For bfloat16 inputs each block's P·V is formed as the
+    kernel forms it, P_hi·V + P_lo·V with P_hi = bf16(p) and
+    P_lo = bf16(p − P_hi).
 
     Same layout and semantics as :func:`flash_attention`, except that ``v``
     may have another last dimension than ``q``; the last blocks may be
@@ -187,11 +217,71 @@ def flash_attention_plain(q, k, v, qpos=None, kpos=None, *, causal=True,
             p = torch.exp(s - m_new)
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(dim=-1, keepdim=True)
-            acc = acc * alpha + torch.matmul(p, vf[:, :, :, j:j + block_k])
+            vb = vf[:, :, :, j:j + block_k]
+            if q.dtype == torch.bfloat16:
+                hi = p.to(torch.bfloat16).to(cdt)
+                pv = torch.matmul(hi, vb) + torch.matmul(
+                    (p - hi).to(torch.bfloat16).to(cdt), vb)
+            else:
+                pv = torch.matmul(p, vb)
+            acc = acc * alpha + pv
             m = m_new
         l = torch.where(l == 0.0, 1.0, l)
         out[:, :, :, i:i + block_q] = (acc / l).to(q.dtype)
     return out.reshape(b, h, sq, v.shape[-1])
+
+
+def attn_expect(q, k, v, *, causal: bool = True, qpos=None, kpos=None):
+    """The plain version in float64 and the kernel's elementwise tolerance
+    against it: ``(want, tol)``, both float64 of ``q``'s shape.
+
+    One output is o = Σ p_j·v_j / Σ p_j with p_j = exp(s_j − m).  With
+    u = 2^-24 and rounding errors bounded as Higham and Mary's
+    probabilistic analysis does, at λ = 10 (a miss chance far below 1e-9
+    over all outputs): a score, a D-term dot product scaled, is off by
+    (λ·√D + 1)·u·a, a = scale·|q_i|·max_j|k_j| ≥ |s_j|; exp's argument
+    s_j − m by u·2a more, and expf adds 2 ulp, so every p_j is off by a
+    relative δ = u·((λ·√D + 3)·a + 4), which moves o by at most 2·δ·M,
+    M = Σ p_j·|v_j| / Σ p_j.  The two sums over Sk keys and the Sk/64 tile
+    rescalings add 2·λ·√(Sk + Sk/64)·u·M, the division u·M.  bfloat16
+    output adds its rounding, 2^-8 of |o| + the above.  The bound scales
+    with M, not with max|v|: a tile left out or a row not written exceeds
+    it (:func:`attn_faults`).
+    """
+    h, d, hkv, sk = q.shape[1], q.shape[3], k.shape[1], k.shape[2]
+    q64, k64, v64 = q.double(), k.double(), v.double()
+    both = flash_attention_plain(
+        q64, k64, torch.cat([v64, v64.abs()], dim=-1), qpos, kpos,
+        causal=causal, block_q=1024, block_k=1024)
+    want, mag = both[..., :d], both[..., d:]
+    kmax = k64.norm(dim=-1).amax(dim=-1).repeat_interleave(h // hkv, dim=1)
+    a = d ** -0.5 * q64.norm(dim=-1, keepdim=True) * kmax[:, :, None, None]
+    del q64, k64, v64, both
+    lam, u = ATTN_LAMBDA, 2.0 ** -24
+    tol = u * mag * (2.0 * ((lam * d ** 0.5 + 3.0) * a + 4.0)
+                     + 2.0 * lam * (sk + sk / 64) ** 0.5 + 1.0)
+    if q.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -8 * (want.abs() + tol)
+    return want, tol
+
+
+def attn_faults(q, k, v, out, *, causal: bool = True, qpos=None,
+                kpos=None) -> dict:
+    """Two wrong versions of ``out``, what :func:`flash_attention` returned
+    for these inputs, which :func:`attn_expect`'s bound must reject:
+    ``tile_skipped`` (the kernel run again with the ``FAULT_TILE`` keys
+    from Sk/2 hidden through ``kpos``, placed past every query, so it
+    leaves that tile out) and ``half_rows_zero`` (the second half of the
+    rows not written)."""
+    sq, sk = q.shape[2], k.shape[2]
+    qpos = _positions("qpos", qpos, sq, q.device)
+    hidden = _positions("kpos", kpos, sk, q.device).clone()
+    hidden[sk // 2:sk // 2 + FAULT_TILE] = int(qpos.max()) + 1
+    zero = out.clone()
+    zero[:, :, sq // 2:] = 0
+    return {"tile_skipped": flash_attention(q, k, v, causal=causal,
+                                            qpos=qpos, kpos=hidden),
+            "half_rows_zero": zero}
 
 
 def attention(q, k, v, *, causal: bool = True, scale: float | None = None):

@@ -79,12 +79,6 @@ def _check(r, k, v, logw, u, s0, chunk):
         raise ValueError(f"wkv6_fused: chunk {chunk} < 1")
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous and 16-byte aligned (the kernel reads 16-byte vectors)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def wkv6_fused(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                logw: torch.Tensor, u: torch.Tensor, *,
                s0: torch.Tensor | None = None, chunk: int = 128):
@@ -115,8 +109,8 @@ def wkv6_fused(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if c > MAX_CHUNK:
         raise ValueError(f"wkv6_fused: chunk {c} exceeds the kernel's "
                          f"{MAX_CHUNK}")
-    r, k, v, logw, u = (_aligned(t) for t in (r, k, v, logw, u))
-    s0 = None if s0 is None else _aligned(s0)
+    r, k, v, logw, u = (_build.aligned(t) for t in (r, k, v, logw, u))
+    s0 = None if s0 is None else _build.aligned(s0)
     out = torch.empty((b, h, s, dv), dtype=f32, device=r.device)
     sfin = torch.empty((b, h, dk, dv), dtype=f32, device=r.device)
     if b * h == 0:

@@ -95,6 +95,52 @@ def test_plain_flash_ragged_blocks_match_the_oracle(sq, causal):
         _close(got[0, hi], want.numpy())
 
 
+def _p_rounded_once(q, k, v, block_k=64):
+    """The plain version with P·V formed from P rounded once to bfloat16
+    (what a kernel that does not split P computes), float32 elsewhere."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qf = q.float().reshape(b, hkv, h // hkv, sq, d)
+    kf, vf = k.float().unsqueeze(2), v.float().unsqueeze(2)
+    pos = torch.arange(max(sq, sk))
+    shape = qf.shape[:-1] + (1,)
+    m = torch.full(shape, attn.NEG_INF)
+    l, acc = torch.zeros(shape), torch.zeros(qf.shape)
+    for j in range(0, sk, block_k):
+        s = qf @ kf[:, :, :, j:j + block_k].mT * d ** -0.5
+        s = torch.where(pos[:sq, None] >= pos[None, j:j + block_k], s,
+                        attn.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p, alpha = torch.exp(s - m_new), torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vf[:, :, :, j:j + block_k]
+        m = m_new
+    return (acc / l).bfloat16().reshape(b, h, sq, d)
+
+
+def test_bf16_bound_takes_the_split_p_and_rejects_p_rounded_once():
+    # causal GQA in bfloat16 at the bound the card holds the kernel to: the
+    # plain version (P·V from P_hi + P_lo, as the kernel forms it) lies
+    # within it; P rounded once to bfloat16 does not, nor do the two
+    # planted faults
+    b, h, hkv, s, d = 1, 8, 2, 256, 128
+    q, k, v = (torch.from_numpy(_np(shape, seed)).bfloat16()
+               for shape, seed in (((b, h, s, d), 70), ((b, hkv, s, d), 71),
+                                   ((b, hkv, s, d), 72)))
+    want, tol = attn.attn_expect(q, k, v)
+
+    def ratio(x):
+        return float(((x.double() - want).abs() / tol).max())
+
+    got = attn.flash_attention(q, k, v, block_q=64, block_k=64)
+    assert got.dtype == torch.bfloat16 and ratio(got) <= 1.0
+    assert ratio(_p_rounded_once(q, k, v)) > 1.0
+    faults = attn.attn_faults(q, k, v, got)
+    assert set(faults) == {"tile_skipped", "half_rows_zero"}
+    for name, wrong in faults.items():
+        assert ratio(wrong) > 1.0, name
+
+
 def test_flash_wrapper_refuses_grad_and_window_on_every_device():
     q = torch.zeros(1, 2, 8, 32)
     with pytest.raises(ValueError, match="backward"):

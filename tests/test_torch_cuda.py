@@ -582,40 +582,6 @@ def test_gecon_and_getri_on_the_card(card, dtype):
     assert res < 100.0
 
 
-def _attn_expect(q, k, v, *, causal=True, qpos=None, kpos=None):
-    """The plain version in float64 and the kernel's elementwise tolerance
-    against it (the same bound as ``chip_smoke.py``'s).
-
-    One output is o = Σ p_j·v_j / Σ p_j with p_j = exp(s_j − m).  With
-    u = 2^-24 and rounding errors bounded as Higham and Mary's
-    probabilistic analysis does, at λ = 10 (a miss chance far below 1e-9
-    over every output here): a score, a D-term dot product scaled, is off
-    by (λ·√D + 1)·u·a, a = scale·|q_i|·max_j|k_j| ≥ |s_j|; exp's argument
-    s_j − m by u·2a more, and expf adds 2 ulp, so every p_j is off by a
-    relative δ = u·((λ·√D + 3)·a + 4), which moves o by at most 2·δ·M,
-    M = Σ p_j·|v_j| / Σ p_j.  The two sums over Sk keys and the Sk/64 tile
-    rescalings add 2·λ·√(Sk + Sk/64)·u·M, the division u·M.  bfloat16
-    output adds its rounding, 2^-8 of |o| + the above.  The bound scales
-    with M, not with max|v|, so a tile left out or a row not written
-    exceeds it (``test_flash_attention_tolerance_catches_planted_faults``).
-    """
-    b, h, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    q64, k64, v64 = q.double(), k.double(), v.double()
-    both = attn.flash_attention_plain(
-        q64, k64, torch.cat([v64, v64.abs()], dim=-1), qpos, kpos,
-        causal=causal, block_q=1024, block_k=1024)
-    want, mag = both[..., :d], both[..., d:]
-    kmax = k64.norm(dim=-1).amax(dim=-1).repeat_interleave(h // hkv, dim=1)
-    a = d ** -0.5 * q64.norm(dim=-1, keepdim=True) * kmax[:, :, None, None]
-    lam, u = 10.0, 2.0 ** -24
-    tol = u * mag * (2.0 * ((lam * d ** 0.5 + 3.0) * a + 4.0)
-                     + 2.0 * lam * (sk + sk / 64) ** 0.5 + 1.0)
-    if q.dtype == torch.bfloat16:
-        tol = tol + 2.0 ** -8 * (want.abs() + tol)
-    return want, tol
-
-
 def _attn_within(got, want, tol):
     return bool(((got.double() - want).abs() <= tol).all())
 
@@ -634,7 +600,7 @@ def test_flash_attention_matches_plain(card, dtype, b, h, hkv, sq, sk, d,
     got = attn.flash_attention(q, k, v, causal=causal)
     assert attn.flash_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == (b, h, sq, d)
-    want, tol = _attn_expect(q, k, v, causal=causal)
+    want, tol = attn.attn_expect(q, k, v, causal=causal)
     assert _attn_within(got, want, tol)
     # the plain version at the input dtype, as the CPU path runs it
     assert _attn_within(attn.flash_attention_plain(q, k, v, causal=causal),
@@ -650,16 +616,11 @@ def test_flash_attention_tolerance_catches_planted_faults(card, dtype):
     q = _randn((b, h, s, d), dtype, card, 60)
     k = _randn((b, hkv, s, d), dtype, card, 61)
     v = _randn((b, hkv, s, d), dtype, card, 62)
-    want, tol = _attn_expect(q, k, v)
+    want, tol = attn.attn_expect(q, k, v)
     got = attn.flash_attention(q, k, v)
     assert _attn_within(got, want, tol)
-    kpos = torch.arange(s, dtype=torch.int32, device=card)
-    kpos[s // 2:s // 2 + 64] = s
-    assert not _attn_within(attn.flash_attention(q, k, v, kpos=kpos),
-                            want, tol)
-    half = got.clone()
-    half[:, :, s // 2:] = 0
-    assert not _attn_within(half, want, tol)
+    for name, wrong in attn.attn_faults(q, k, v, got).items():
+        assert not _attn_within(wrong, want, tol), name
 
 
 @pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
@@ -674,12 +635,78 @@ def test_flash_attention_positions_and_masked_rows(card, dtype):
     qpos = torch.arange(s, dtype=torch.int32, device=card) - 70
     kpos = torch.arange(s, dtype=torch.int32, device=card)
     got = attn.flash_attention(q, k, v, qpos=qpos, kpos=kpos)
-    want, tol = _attn_expect(q, k, v, qpos=qpos, kpos=kpos)
+    want, tol = attn.attn_expect(q, k, v, qpos=qpos, kpos=kpos)
     assert _attn_within(got, want, tol)
     assert _attn_within(attn.flash_attention_plain(
         q, k, v, qpos, kpos, block_q=64, block_k=96), want, tol)
     mean_v = v.double().mean(dim=2)[:, :, None].repeat_interleave(2, dim=1)
     assert _attn_within(got[:, :, :70], mean_v, tol[:, :, :70])
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("d", (32, 64, 128))
+@pytest.mark.parametrize("sq,sk,causal", [
+    (97, 161, True), (200, 75, False), (129, 129, True),
+    *((sq, sk, causal) for sq, sk in ((1, 1), (17, 17), (40, 40), (5, 70))
+      for causal in (True, False))])
+def test_flash_attention_ragged_tiles(card, dtype, d, sq, sk, causal):
+    # Sq and Sk not multiples of the 128-row block or the 64-key tile: the
+    # last query block and key tile are short; prompts shorter than one
+    # 64-row box of Q, K or V read zeros past the last row and leave the
+    # second consumer warpgroup of a bfloat16 block without rows
+    b, h, hkv = 2, 4, 2
+    q = _randn((b, h, sq, d), dtype, card, 63)
+    k = _randn((b, hkv, sk, d), dtype, card, 64)
+    v = _randn((b, hkv, sk, d), dtype, card, 65)
+    got = attn.flash_attention(q, k, v, causal=causal)
+    want, tol = attn.attn_expect(q, k, v, causal=causal)
+    assert _attn_within(got, want, tol)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_flash_attention_ragged_tile_reads_nothing_of_the_next_head(card,
+                                                                   dtype):
+    # the last key tile of KV head 0 is short (Sk 100); the rows after it
+    # in memory are KV head 1's, here inf: head 0's queries must not see them
+    # (the kernel's tensor maps are 3-D, so a box past Sk reads zeros)
+    b, h, hkv, s, d = 1, 4, 2, 100, 128
+    q = _randn((b, h, s, d), dtype, card, 66)
+    k = _randn((b, hkv, s, d), dtype, card, 67)
+    v = _randn((b, hkv, s, d), dtype, card, 68)
+    k[:, 1], v[:, 1] = float("inf"), float("inf")
+    got = attn.flash_attention(q, k, v)
+    assert bool(torch.isfinite(got[:, :2]).all())
+    want, tol = attn.attn_expect(q[:, :2], k[:, :1], v[:, :1])
+    assert _attn_within(got[:, :2], want, tol)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_flash_attention_hidden_tile_matches_its_mask(card, dtype):
+    # keys 512..575 placed past every query through kpos: the kernel skips
+    # that tile for rows that have seen a visible key and must equal the
+    # attention with those keys masked; rows 0..63 see keys 0..63 only
+    b, h, hkv, s, d = 1, 8, 2, 1024, 64
+    q = _randn((b, h, s, d), dtype, card, 69)
+    k = _randn((b, hkv, s, d), dtype, card, 70)
+    v = _randn((b, hkv, s, d), dtype, card, 71)
+    kpos = torch.arange(s, dtype=torch.int32, device=card)
+    kpos[512:576] = s
+    got = attn.flash_attention(q, k, v, kpos=kpos)
+    want, tol = attn.attn_expect(q, k, v, kpos=kpos)
+    assert _attn_within(got, want, tol)
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_flash_attention_is_deterministic(card, dtype):
+    # no atomics: two launches on the same inputs agree bit for bit
+    b, h, hkv, s, d = 2, 8, 2, 300, 128
+    q = _randn((b, h, s, d), dtype, card, 72)
+    k = _randn((b, hkv, s, d), dtype, card, 73)
+    v = _randn((b, hkv, s, d), dtype, card, 74)
+    assert torch.equal(attn.flash_attention(q, k, v),
+                       attn.flash_attention(q, k, v))
+    if dtype == torch.bfloat16:
+        assert attn.kernel_config(d)["route"] == "wgmma"
 
 
 def test_flash_attention_refuses_what_the_kernel_does_not_take(card):
@@ -706,7 +733,7 @@ def test_chunked_attention_launches_the_kernel(card, dtype):
     assert attn.flash_attention.launches == before + 1
     ref = L.chunked_attention(q.cpu(), k.cpu(), v.cpu(), pos.cpu(),
                               pos.cpu(), chunk_q=64, chunk_k=128)
-    want, tol = _attn_expect(q.reshape(b, g * hg, s, d), k, v)
+    want, tol = attn.attn_expect(q.reshape(b, g * hg, s, d), k, v)
     shape = (b, g * hg, s, d)
     assert _attn_within(got.reshape(shape), want, tol)
     assert _attn_within(ref.reshape(shape).to(card), want, tol)
