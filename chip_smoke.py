@@ -22,7 +22,13 @@
    mapping onto blocks, the tile) and is held bitwise to its contract run
    one thread an element with one FMA a term (in float64 the check that its
    DMMA steps keep the DFMA chain), and the gels PU's V^T C (and the
-   solve's V^T B) bitwise to the whole update's first columns.  The fused panel
+   solve's V^T B) bitwise to the whole update's first columns.  The TRSM
+   (lower unit and upper non-unit at 128 x 8064 and at the solves'
+   128 x 16, the right mode at 8064 x 128) prints its plan (right-hand
+   sides a block, strip rows, threads, shared memory) and is held bitwise
+   to its contract run one thread a right-hand side (``trsm_chain``, the
+   previous design, timed beside it); its times are the card's on a busy
+   card, with one call from an idle card beside them.  The fused panel
    updates are held bitwise to the composed kernels, pivots included; the
    QR, QRCP and Hessenberg panels within 4·k·eps of their plain versions,
    k the longest chain of terms the kernel sums for one element, QRCP
@@ -435,28 +441,68 @@ def main() -> int:
                                           randn(QR_M - BLOCK, BLOCK),
                                           randn(BLOCK, nc))
 
-        # TRSM: lower unit (U12 = L11^-1 A12) and upper non-unit, 128 x 8064
-        lu_t = torch.linalg.lu_factor(randn(BLOCK, BLOCK)).LU.contiguous()
-        rhs = randn(BLOCK, m)
-        xout = torch.empty_like(rhs)
+        # TRSM: lower unit (U12 = L11^-1 A12) and upper non-unit at 128 x
+        # 8064 and at the solves' diagonal blocks, 128 x NRHS; the right
+        # transposed mode (the Cholesky L21 solve) at 8064 x 128 below.  Each
+        # bitwise equal to its contract run one thread a right-hand side
+        # (trsm_chain: the previous design, timed beside it); ms on a busy
+        # card (queued_ms), call_ms from an idle card, host work included.
         tri = BLOCK * (BLOCK + 1) // 2
-        for lower, unit in ((True, True), (False, False)):
-            got = trsm.trsm(lu_t, rhs, lower=lower, unit_diagonal=unit,
-                            out=xout)
+
+        def trsm_row(t, rhs, lower, unit, right=False):
+            out = torch.empty_like(rhs)
+            nrhs = rhs.shape[0 if right else 1]
+            if right:
+                def run():
+                    return trsm.trsm_right_lower_t(t, rhs, unit_diagonal=unit,
+                                                   out=out)
+
+                def plain():
+                    return trsm.trsm_right_lower_t_plain(t, rhs,
+                                                         unit_diagonal=unit)
+
+                def lib():
+                    return torch.linalg.solve_triangular(
+                        t.mT, rhs, upper=True, left=False, unitriangular=unit)
+            else:
+                def run():
+                    return trsm.trsm(t, rhs, lower=lower, unit_diagonal=unit,
+                                     out=out)
+
+                def plain():
+                    return trsm.trsm_plain(t, rhs, lower=lower,
+                                           unit_diagonal=unit)
+
+                def lib():
+                    return torch.linalg.solve_triangular(
+                        t, rhs, upper=not lower, unitriangular=unit)
+
+            def chain():
+                return trsm.trsm_chain(t, rhs, lower=lower,
+                                       unit_diagonal=unit, right=right)
+            got = run()
             sync()
-            err, mx = compare(got, trsm.trsm_plain(
-                lu_t, rhs, lower=lower, unit_diagonal=unit))
-            flops = m * BLOCK * (BLOCK - 1) + (0 if unit else m * BLOCK)
-            res["trsm" if lower else "trsm_upper"] = dict(
-                shape=[BLOCK, m], lower=lower, unit=unit, rel_err=err,
-                max_abs_err=mx, tol=tolerance(dtype, BLOCK),
-                ms=time_ms(lambda: trsm.trsm(
-                    lu_t, rhs, lower=lower, unit_diagonal=unit, out=xout), 10),
-                plain_ms=time_ms(lambda: trsm.trsm_plain(
-                    lu_t, rhs, lower=lower, unit_diagonal=unit), 3),
-                library_ms=time_ms(lambda: torch.linalg.solve_triangular(
-                    lu_t, rhs, upper=not lower, unitriangular=unit), 10),
-                bound=bound(flops, (tri + 2 * BLOCK * m) * size))
+            check(torch.equal(got, chain()), f"trsm {dtype} "
+                  f"{tuple(rhs.shape)} lower={lower} unit={unit} "
+                  f"right={right}: not bitwise equal to its chain contract")
+            err, mx = compare(got, plain())
+            flops = nrhs * BLOCK * (BLOCK - 1) + (0 if unit else nrhs * BLOCK)
+            return dict(
+                shape=list(rhs.shape), lower=lower, unit=unit, right=right,
+                plan=trsm.plan(BLOCK, nrhs, dtype, right=right),
+                bitwise_equal_to_chain=True, rel_err=err, max_abs_err=mx,
+                tol=tolerance(dtype, BLOCK), ms=queued_ms(run, 20),
+                call_ms=time_ms(run, 20), chain_ms=queued_ms(chain, 5),
+                plain_ms=time_ms(plain, 3), library_ms=queued_ms(lib, 20),
+                library_call_ms=time_ms(lib, 20),
+                bound=bound(flops, (tri + 2 * BLOCK * nrhs) * size))
+
+        lu_t = torch.linalg.lu_factor(randn(BLOCK, BLOCK)).LU.contiguous()
+        for key, cols in (("trsm", m), ("trsm_solve", NRHS)):
+            rhs = randn(BLOCK, cols)
+            res[key] = trsm_row(lu_t, rhs, True, True)
+            res[f"{key}_upper"] = trsm_row(lu_t, rhs, False, False)
+        del rhs
 
         # GETF2 panel, 8192 x 128, in place (timed on a fresh copy; the
         # copy's own time is subtracted).  Bitwise equal to its plain
@@ -493,23 +539,8 @@ def main() -> int:
 
         # right transposed TRSM: X L^T = B, the Cholesky L21 solve, 8064 x 128
         l_c = torch.linalg.cholesky(spd(BLOCK)).contiguous()
-        rhs_r = randn(m, BLOCK)
-        rout = torch.empty_like(rhs_r)
-        got = trsm.trsm_right_lower_t(l_c, rhs_r, out=rout)
-        sync()
-        err, mx = compare(got, trsm.trsm_right_lower_t_plain(l_c, rhs_r))
-        res["trsm_right_lower_t"] = dict(
-            shape=[m, BLOCK], rel_err=err, max_abs_err=mx,
-            tol=tolerance(dtype, BLOCK),
-            ms=time_ms(lambda: trsm.trsm_right_lower_t(l_c, rhs_r, out=rout),
-                       10),
-            plain_ms=time_ms(
-                lambda: trsm.trsm_right_lower_t_plain(l_c, rhs_r), 3),
-            library_ms=time_ms(lambda: torch.linalg.solve_triangular(
-                l_c.mT, rhs_r, upper=True, left=False), 10),
-            bound=bound(float(m) * BLOCK * BLOCK,
-                        (tri + 2 * m * BLOCK) * size))
-        del rhs_r, rout
+        res["trsm_right_lower_t"] = trsm_row(l_c, randn(m, BLOCK), True,
+                                             False, right=True)
 
         def fused_row(name, fused, plain, composed, ops_in, outs, flops,
                       nbytes, tol_k):
@@ -1828,13 +1859,18 @@ def main() -> int:
                 "hessenberg_panel": "src/repro/kernels/panel_hessenberg.py:39"}
 
     def numbers(r):
+        # what this run measured or gated; a kernel's chosen plan or split
+        # stays in its phase record
         out = {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
-        for key in ("composed_ms", "split", "window", "k_half", "n_rtm"):
+        for key in ("composed_ms", "bitwise_equal_to_chain",
+                    "chain_ms", "call_ms", "library_call_ms"):
             if key in r:
-                out[key] = r[key] if key in ("composed_ms", "split") \
-                    else numbers(r[key])
+                out[key] = r[key]
+        for key in ("window", "k_half", "n_rtm"):
+            if key in r:
+                out[key] = numbers(r[key])
         return out
 
     def at_shape(key):   # float64 at the top level, float32 beside it
@@ -1855,12 +1891,14 @@ def main() -> int:
             kernels[-1]["shapes"] = {key: at_shape(key) for key in (
                 "gemm", "gemm_gels_vtc", "gemm_gels_vtc_pu", "gemm_gels_vtb",
                 "gemm_accum_qrcp")}
+        if name == "trsm":   # the upper mode, and the solves' shape
+            kernels[-1]["shapes"] = {key: at_shape(key) for key in (
+                "trsm_upper", "trsm_solve", "trsm_solve_upper")}
 
     def attn_numbers(r):
         out = {**numbers(r), "err_over_tol": r["err_over_tol"]}
-        for key in ("library_err_over_tol", "call_ms", "library_call_ms"):
-            if key in r:
-                out[key] = r[key]
+        if "library_err_over_tol" in r:
+            out["library_err_over_tol"] = r["library_err_over_tol"]
         return out
 
     def bf16_shape(by_dtype, key):   # bfloat16 on top, float32 beside it

@@ -17,6 +17,7 @@ dimension.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -162,11 +163,19 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+_FUNCTIONS: dict[tuple[str, str], object] = {}
+
+
 def function(lib: str, symbol: str, argtypes: list):
-    """C entry point ``symbol`` of ``lib`` with its argument types set."""
-    fn = getattr(library(lib), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    """C entry point ``symbol`` of ``lib`` with its argument types set
+    (kept after the first call: a wrapper's host work is part of every
+    launch)."""
+    fn = _FUNCTIONS.get((lib, symbol))
+    if fn is None:
+        fn = getattr(library(lib), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[lib, symbol] = fn
     return fn
 
 
@@ -178,7 +187,18 @@ def check_launch(lib: str, err: int, what: str) -> None:
 
 
 def stream_of(device: torch.device) -> ctypes.c_void_p:
-    return c_ptr(torch.cuda.current_stream(device).cuda_stream)
+    """The current CUDA stream of ``device`` as a raw handle (PyTorch's
+    ``_cuda_getCurrentRawStream``: ``torch.cuda.current_stream`` builds a
+    ``Stream`` under a device guard, several µs a launch)."""
+    return c_ptr(torch._C._cuda_getCurrentRawStream(device.index))
+
+
+def device_guard(device: torch.device):
+    """``torch.cuda.device(device)`` unless ``device`` is already the
+    current one, where entering it would only cost host time."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -144,7 +144,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: no keys (Sk = 0)")
     fn = _build.function(
         _LIB, f"repro_flash_attention_{_build.SUFFIX[q.dtype]}", _ARGS)
-    with torch.cuda.device(q.device):
+    with _build.device_guard(q.device):
         err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
                  _build.ptr(qpos), _build.ptr(kpos), b, h, hkv, sq, sk, d,
                  scale, int(bool(causal)), _build.stream_of(q.device))

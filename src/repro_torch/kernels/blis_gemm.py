@@ -136,7 +136,7 @@ def _launch(c, a, b, alpha, beta, out) -> torch.Tensor:
     fn = _build.function(_LIB, f"repro_gemm_{_build.SUFFIX[dtype]}",
                          _RUN_ARGS)
     src = c if beta != 0.0 else out
-    with torch.cuda.device(device):
+    with _build.device_guard(device):
         err = fn(m, n, k, alpha, _build.ptr(a), _build.ld(a),
                  _build.ptr(b), _build.ld(b), beta, _build.ptr(src),
                  _build.ld(src), _build.ptr(out), _build.ld(out),
@@ -175,7 +175,7 @@ def gemm_chain(c: Optional[torch.Tensor], a: torch.Tensor, b: torch.Tensor,
     src = c if beta != 0.0 else out
     fn = _build.function(_LIB, f"repro_gemm_chain_{_build.SUFFIX[dtype]}",
                          _CHAIN_ARGS)
-    with torch.cuda.device(device):
+    with _build.device_guard(device):
         err = fn(m, n, a.shape[1], float(alpha), _build.ptr(a), _build.ld(a),
                  _build.ptr(b), _build.ld(b), float(beta), _build.ptr(src),
                  _build.ld(src), _build.ptr(out), _build.ld(out),

@@ -29,3 +29,35 @@ __device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, 
 __device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
 __device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
 __device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+
+// ---------------------------------------------------------------------------
+// cp.async: 16-byte copies where the source rows are 16-byte aligned, one
+// element a copy where they are not; the bytes past `bytes` are zero-filled.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+template <int SIZE>
+__device__ __forceinline__ void cp_async_elem(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "n"(SIZE), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+}
+
+// A row-major matrix (base `ptr`, leading dimension `ld`) whose rows all
+// start 16-byte aligned.
+static inline bool aligned16(const void* ptr, int64_t ld, size_t size) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && (ld * static_cast<int64_t>(size)) % 16 == 0;
+}

@@ -4,7 +4,10 @@
 // every kernel that computes part of a step rounds exactly as the kernel it
 // stands in for.  The fused panel updates (fused_pu.cu) replace a TRSM, a
 // GEMM-accumulate and a panel factorization, so they share these routines
-// with gemm.cu, trsm.cu and panel_lu.cu instead of retyping them:
+// with gemm.cu and panel_lu.cu instead of retyping them.  trsm.cu runs
+// solve_vector only in its chain kernel (the contract, on no path) and in
+// the small LU solve; its strip kernel keeps solve_vector's order term for
+// term and is held to the chain kernel bitwise:
 //
 //   gemm_step     one term of the GEMM accumulator: acc + a*b in one FMA,
 //                 with alpha already folded into a, k ascending;

@@ -37,8 +37,8 @@
 //               rows below bn, one thread per row, in place.
 //
 // Determinism: each phase rounds exactly as the composed path it replaces,
-// because it runs the same element routines (dense.cuh): solve_vector as
-// the TRSM kernel, gemm_step over ascending k with alpha = -1 folded into
+// because it runs the same element routines (dense.cuh): solve_vector,
+// whose order the TRSM kernel's strips keep bitwise, gemm_step over ascending k with alpha = -1 folded into
 // L21 as the GEMM-accumulate kernel, getf2_grid as the panel kernel.  The
 // Cholesky diagonal step repeats repro_torch.core.cholesky.cholesky_unblocked
 // as PyTorch computes it on the card: an IEEE square root, a division, then

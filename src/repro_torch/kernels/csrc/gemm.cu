@@ -69,31 +69,6 @@ struct GemmArgs {
   int tiles_n;
 };
 
-// ---------------------------------------------------------------------------
-// cp.async
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-
-template <int SIZE>
-__device__ __forceinline__ void cp_async_elem(void* dst, const void* src, int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "n"(SIZE), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
-}
-
 // Rows [r0, r0 + R) and columns [c0, c0 + CC) of the row-major g (leading
 // dimension ld) into s[R][SS]; rows from rmax and columns from cmax on are
 // zero.  With VEC, g and ld are 16-byte aligned and c0 is a multiple of
@@ -537,10 +512,6 @@ static cudaError_t make_plan(int64_t M, int64_t N, int64_t K, const Tiles& t, Pl
   plan->tile = plan->kind == WIDE_TILE ? t.wide : plan->kind == DEEP_TILE ? t.deep : t.small;
   plan->workspace = plan->mapping == ACROSS ? (chunks - 1) * M * N : 0;
   return cudaSuccess;
-}
-
-static bool aligned16(const void* ptr, int64_t ld, size_t size) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && (ld * static_cast<int64_t>(size)) % 16 == 0;
 }
 
 // One tile configuration: the kernel for (NEG, MULTI) and its shared memory.

@@ -119,7 +119,7 @@ def fused_lu_panel_update(l11: torch.Tensor, l21: torch.Tensor,
     if piv.numel() == 0:
         return a1l, a2l, piv
     sfx = _build.SUFFIX[dtype]
-    with torch.cuda.device(device):
+    with _build.device_guard(device):
         g = _grid(f"repro_fused_lu_grid_{sfx}", _LU_GRID_ARGS, b, m, bn)
         cand = torch.empty(2 * g * bn, dtype=dtype, device=device)
         rowj = torch.empty(2 * bn, dtype=dtype, device=device)
@@ -158,7 +158,7 @@ def fused_cholesky_panel_update(lrow: torch.Tensor, l21: torch.Tensor,
     if panel.numel() == 0:
         return panel
     sfx = _build.SUFFIX[dtype]
-    with torch.cuda.device(device):
+    with _build.device_guard(device):
         g = _grid(f"repro_fused_chol_grid_{sfx}", _CHOL_GRID_ARGS, m, bn)
         p = _build.ptr
         err = _build.function(_LIB, f"repro_fused_chol_{sfx}", _CHOL_ARGS)(

@@ -107,7 +107,7 @@ def hessenberg_panel(a: torch.Tensor, k: int, bk: int):
     if bk == 0:
         return a, v, t, w, tau
     sfx = _build.SUFFIX[dtype]
-    with torch.cuda.device(device):
+    with _build.device_guard(device):
         g = _grid(sfx, n, bk)
         # the column (n), v_j (n), partials of Vᵀ·col and Vᵀ·v_j (2·g·bk)
         # and of the norm (g) — the layout ``csrc/panel_hessenberg.cu`` reads

@@ -49,7 +49,7 @@ def lu_panel(panel: torch.Tensor) -> torch.Tensor:
         return piv
     sfx = _build.SUFFIX[dtype]
     grid = ctypes.c_int(0)
-    with torch.cuda.device(device):
+    with _build.device_guard(device):
         err = _build.function(_LIB, f"repro_panel_lu_grid_{sfx}",
                               _GRID_ARGS)(m, nb, ctypes.byref(grid))
         _build.check_launch(_LIB, err, "lu_panel grid query")

@@ -68,7 +68,7 @@ def qr_panel(panel: torch.Tensor):
     if m == 0 or nb == 0:
         return panel, tau, t
     sfx = _build.SUFFIX[dtype]
-    with torch.cuda.device(device):
+    with _build.device_guard(device):
         g = _grid(f"repro_qr_panel_grid_{sfx}", m, nb)
         ws = _workspace(nb, g, dtype, device)
         err = _build.function(_LIB, f"repro_qr_panel_{sfx}", _ARGS)(
@@ -99,7 +99,7 @@ def larft(v: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
         return t
     tau = tau.contiguous()
     sfx = _build.SUFFIX[dtype]
-    with torch.cuda.device(device):
+    with _build.device_guard(device):
         g = _grid(f"repro_larft_grid_{sfx}", m, nb)
         ws = _workspace(nb, g, dtype, device)
         err = _build.function(_LIB, f"repro_larft_{sfx}", _ARGS)(

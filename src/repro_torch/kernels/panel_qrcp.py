@@ -109,7 +109,7 @@ def qrcp_panel(block: torch.Tensor, steps: int):
     if steps == 0:
         return block, v, ft.mT, tau, piv
     sfx = _build.SUFFIX[dtype]
-    with torch.cuda.device(device):
+    with _build.device_guard(device):
         g = _grid(sfx, r, steps)
         # norms (2c), partials of Bᵀv (g·c), of Vᵀv (g·steps), of the norm (g)
         ws = torch.empty(2 * c + g * c + g * steps + g, dtype=dtype,

@@ -9,20 +9,36 @@ Kernels: ``csrc/trsm.cu`` (CUDA C++ for sm_90a).
 * :func:`trsm_right_lower_t` replaces
   ``repro/kernels/trsm.py::trsm_right_lower_t`` (``X·Lᵀ = B``, the
   Cholesky L21 solve).  The reference transposes around its left kernel;
-  here the same kernel reads each row of B as one right-hand side, by
-  stride, with no transposed copy.
+  here each row of B is one right-hand side, staged transposed in shared
+  memory, so both modes run one kernel.
 * :func:`lu_solve_small` replaces ``repro/kernels/trsm.py::lu_solve_small``:
   forward unit-lower then backward upper substitution on a packed LU
   (n ≤ 256) in one launch.
 
-The source note in ``trsm.cu`` says what bounds them on an H100 and how
-their design answers that.  All give every right-hand side to its own
-thread, so they are decomposable like the GEMM.  The plain PyTorch
-versions sweep the columns of the triangle (``x[j] /= T[j, j]``,
-then ``x[rows] -= T[rows, j]·x[j]``), which subtracts from each row in the
-same order as the kernel's row sums; the two differ only by the kernel's
-FMA rounding.  Both compute at the input dtype (the reference's TPU
-kernel casts to f32).
+What bounds them on an H100 is latency: every element of X is a chain of
+up to b dependent FMAs, while the bytes (B read, X written once) take
+about 5 µs at 128 × 8064 in f64.  The TRSM kernel therefore works in
+strips (the note in ``trsm.cu`` gives the details): a block owns a tile
+of NC right-hand sides and all b rows of them in shared memory, walks the
+triangle in strips of R rows (top-down for lower, bottom-up for upper),
+solves each strip's R × R diagonal block one thread a right-hand side,
+then applies the strip to the rows not yet solved with every thread.
+:func:`plan` shows the tile, the strip, the threads and the shared memory
+chosen for a shape.
+
+The rounding contract is ``solve_vector`` (``csrc/dense.cuh``): each
+element starts from B, takes ``fma(-T[i, j], x[j], acc)`` in ascending j
+(lower) or descending j (upper), then one division unless the diagonal is
+unit.  The strips keep that order term for term, so the kernel equals
+:func:`trsm_chain`, the contract run one thread a right-hand side,
+bitwise; that kernel is a check on no path.  Every column of X so depends
+only on T and its own column of B (decomposable, like the GEMM), and the
+fused panel updates, which run ``solve_vector`` themselves, stay bitwise
+equal to the composed kernels.  The plain PyTorch versions sweep the
+columns of the triangle (``x[j] /= T[j, j]``, then
+``x[rows] -= T[rows, j]·x[j]``), which subtracts from each row in the same
+order; they differ from the kernel only by its FMA rounding.  Both compute
+at the input dtype (the reference's TPU kernel casts to f32).
 """
 from __future__ import annotations
 
@@ -34,7 +50,7 @@ from repro_torch.kernels import _build
 
 __all__ = ["trsm", "trsm_plain", "trsm_right_lower_t",
            "trsm_right_lower_t_plain", "lu_solve_small",
-           "lu_solve_small_plain", "MAX_ROWS"]
+           "lu_solve_small_plain", "trsm_chain", "plan", "MAX_ROWS"]
 
 _LIB = "trsm"
 #: Largest triangle the kernels take (rows of the right-hand side).
@@ -45,6 +61,9 @@ _TRSM_ARGS = [_build.c_i64, _build.c_i64, _build.ctypes.c_int,
 _RIGHT_ARGS = [_build.c_i64, _build.c_i64, _build.ctypes.c_int, _build.c_ptr,
                _build.c_i64, _build.c_ptr, _build.c_i64, _build.c_ptr,
                _build.c_i64, _build.c_ptr]
+_CHAIN_ARGS = _TRSM_ARGS[:4] + [_build.ctypes.c_int] + _TRSM_ARGS[4:]
+_PLAN_ARGS = [_build.c_i64, _build.c_i64, _build.ctypes.c_int,
+              _build.ctypes.POINTER(_build.c_i64)]
 _SOLVE_ARGS = [_build.c_i64, _build.c_i64, _build.c_ptr, _build.c_i64,
                _build.c_ptr, _build.c_i64, _build.c_ptr, _build.c_i64,
                _build.c_ptr]
@@ -123,7 +142,7 @@ def trsm(t: torch.Tensor, b: torch.Tensor, *, lower: bool = True,
         return out
     fn = _build.function(_LIB, f"repro_trsm_{_build.SUFFIX[dtype]}",
                          _TRSM_ARGS)
-    with torch.cuda.device(device):
+    with _build.device_guard(device):
         err = fn(t.shape[0], b.shape[1], int(lower), int(unit_diagonal),
                  _build.ptr(t), _build.ld(t), _build.ptr(b), _build.ld(b),
                  _build.ptr(out), _build.ld(out), _build.stream_of(device))
@@ -147,13 +166,57 @@ def trsm_right_lower_t(l: torch.Tensor, b: torch.Tensor, *,
         return out
     fn = _build.function(_LIB, f"repro_trsm_right_{_build.SUFFIX[dtype]}",
                          _RIGHT_ARGS)
-    with torch.cuda.device(device):
+    with _build.device_guard(device):
         err = fn(l.shape[0], b.shape[0], int(unit_diagonal), _build.ptr(l),
                  _build.ld(l), _build.ptr(b), _build.ld(b), _build.ptr(out),
                  _build.ld(out), _build.stream_of(device))
     _build.check_launch(_LIB, err, "trsm_right_lower_t kernel launch")
     trsm_right_lower_t.launches += 1
     return out
+
+
+def trsm_chain(t: torch.Tensor, b: torch.Tensor, *, lower: bool = True,
+               unit_diagonal: bool = False, right: bool = False
+               ) -> torch.Tensor:
+    """The TRSM kernels' rounding contract on the card: ``solve_vector``
+    run one thread a right-hand side (``T·X = B``, or ``X·Tᵀ = B`` for a
+    lower T when ``right``).  A check, on no path: :func:`trsm` and
+    :func:`trsm_right_lower_t` must equal it bitwise.  CUDA tensors only;
+    launches are not counted."""
+    if right and not lower:
+        raise ValueError("trsm_chain: the right mode solves X·Lᵀ = B for a "
+                         "lower L only")
+    dtype, device = _check("trsm_chain", t, b, None, right=right)
+    if device.type != "cuda":
+        raise ValueError("trsm_chain runs on a CUDA device only")
+    out = torch.empty_like(b)
+    if b.numel() == 0:
+        return out
+    fn = _build.function(_LIB, f"repro_trsm_chain_{_build.SUFFIX[dtype]}",
+                         _CHAIN_ARGS)
+    with _build.device_guard(device):
+        err = fn(t.shape[0], b.shape[0 if right else 1], int(lower),
+                 int(unit_diagonal), int(right), _build.ptr(t), _build.ld(t),
+                 _build.ptr(b), _build.ld(b), _build.ptr(out), _build.ld(out),
+                 _build.stream_of(device))
+    _build.check_launch(_LIB, err, "trsm chain launch")
+    return out
+
+
+def plan(rows: int, rhs: int, dtype: torch.dtype, *, right: bool = False,
+         device: Optional[torch.device] = None) -> dict:
+    """How the TRSM kernel solves ``rhs`` right-hand sides of ``rows``
+    elements on a CUDA device: right-hand sides per block (``nc``), strip
+    rows (``r``), threads and blocks, dynamic shared memory a block.
+    Builds the library."""
+    out = (_build.c_i64 * 5)()
+    fn = _build.function(_LIB, f"repro_trsm_plan_{_build.SUFFIX[dtype]}",
+                         _PLAN_ARGS)
+    with torch.cuda.device(device or torch.device("cuda")):
+        err = fn(rows, rhs, int(right), out)
+    _build.check_launch(_LIB, err, "trsm plan")
+    return {"nc": out[0], "r": out[1], "threads": out[2],
+            "smem_bytes": out[3], "blocks": out[4]}
 
 
 def lu_solve_small(lu: torch.Tensor, b: torch.Tensor, *,
@@ -169,7 +232,7 @@ def lu_solve_small(lu: torch.Tensor, b: torch.Tensor, *,
         return out
     fn = _build.function(_LIB, f"repro_lu_solve_{_build.SUFFIX[dtype]}",
                          _SOLVE_ARGS)
-    with torch.cuda.device(device):
+    with _build.device_guard(device):
         err = fn(lu.shape[0], b.shape[1], _build.ptr(lu), _build.ld(lu),
                  _build.ptr(b), _build.ld(b), _build.ptr(out), _build.ld(out),
                  _build.stream_of(device))

@@ -116,7 +116,7 @@ def wkv6_fused(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if b * h == 0:
         return out, sfin
     fn = _build.function(_LIB, f"repro_wkv6_{_build.SUFFIX[r.dtype]}", _ARGS)
-    with torch.cuda.device(r.device):
+    with _build.device_guard(r.device):
         err = fn(_build.ptr(r), _build.ptr(k), _build.ptr(v),
                  _build.ptr(logw), _build.ptr(u),
                  None if s0 is None else _build.ptr(s0), _build.ptr(out),

@@ -213,6 +213,100 @@ def test_trsm_matches_plain(card, dtype, nb, w, lower, unit):
     assert _rel(got, ref) < _kernel_tol(dtype, nb)
 
 
+TRSM_ROWS = (1, 7, 16, 100, 128, 200, 256)
+TRSM_RHS = (1, 16, 33, 8064)
+
+
+def _triangle(nb, dtype, device, seed):
+    """A full nb × nb matrix whose triangles are well conditioned: the
+    kernels must read only their own triangle, so the other holds data."""
+    t = _randn((nb, nb), dtype, device, seed) / max(nb, 1) ** 0.5
+    t.diagonal().add_(2.0)
+    return t
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nb", TRSM_ROWS)
+@pytest.mark.parametrize("lower,unit", [(True, True), (True, False),
+                                        (False, True), (False, False)])
+def test_trsm_is_bitwise_its_chain_contract(card, dtype, nb, lower, unit):
+    """The strip kernel keeps solve_vector's order term for term: bitwise
+    the chain kernel, for ragged strips (nb not a multiple of 16) and
+    ragged tiles (n not a multiple of NC), aligned (n 16, 8064) and
+    unaligned (n 1, 33 in float64) rows of B."""
+    t = _triangle(nb, dtype, card, 40)
+    for n in TRSM_RHS:
+        rhs = _randn((nb, n), dtype, card, 41 + n)
+        got = trsm.trsm(t, rhs, lower=lower, unit_diagonal=unit)
+        want = trsm.trsm_chain(t, rhs, lower=lower, unit_diagonal=unit)
+        assert torch.equal(got, want), (nb, n)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nb", TRSM_ROWS)
+@pytest.mark.parametrize("unit", [False, True])
+def test_trsm_right_is_bitwise_its_chain_contract(card, dtype, nb, unit):
+    """X·Lᵀ = B: the rows of B staged transposed run the same strips."""
+    l = _triangle(nb, dtype, card, 42)
+    for m in TRSM_RHS:
+        rhs = _randn((m, nb), dtype, card, 43 + m)
+        got = trsm.trsm_right_lower_t(l, rhs, unit_diagonal=unit)
+        want = trsm.trsm_chain(l, rhs, lower=True, unit_diagonal=unit,
+                               right=True)
+        assert torch.equal(got, want), (nb, m)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", [0, 1])
+@pytest.mark.parametrize("nb", [16, 100, 128])
+def test_trsm_in_place_on_strided_views_is_bitwise_the_chain(card, dtype, k,
+                                                             nb):
+    """In place on views of a larger matrix (ld 404 ≠ n), as the LU update
+    solves U12 and the Cholesky PF solves L21.  ld 404 keeps every row
+    16-byte aligned in both dtypes, so k = 0 takes the 16-byte copies (as
+    the LU update at ld = n = 8192 does); k = 1 puts the views' base off
+    16-byte alignment (one-element copies)."""
+    big = _randn((nb + 300, 404), dtype, card, 44)
+    big[k:k + nb, k:k + nb].diagonal().add_(2.0)
+    t = big[k:k + nb, k:k + nb]
+    for lower, unit in ((True, True), (False, False), (True, False)):
+        rhs = big[k:k + nb, k + nb:]
+        want = trsm.trsm_chain(t, rhs, lower=lower, unit_diagonal=unit)
+        got = trsm.trsm(t, rhs, lower=lower, unit_diagonal=unit, out=rhs)
+        assert got.data_ptr() == rhs.data_ptr()
+        assert torch.equal(rhs, want), (lower, unit)
+    rows = big[k + nb:, k:k + nb]
+    want = trsm.trsm_chain(t, rows, lower=True, right=True)
+    trsm.trsm_right_lower_t(t, rows, out=rows)
+    assert torch.equal(rows, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_trsm_is_column_decomposable_bitwise(card, dtype):
+    """The first w right-hand sides alone (another tile width, another
+    grid) give bitwise the first w of the whole solve."""
+    nb, n, w = 128, 8064, 100
+    assert trsm.plan(nb, n, dtype)["nc"] != trsm.plan(nb, w, dtype)["nc"]
+    t = _triangle(nb, dtype, card, 45)
+    rhs = _randn((nb, n), dtype, card, 46)
+    for lower, unit in ((True, True), (False, False)):
+        whole = trsm.trsm(t, rhs, lower=lower, unit_diagonal=unit)
+        part = trsm.trsm(t, rhs[:, :w], lower=lower, unit_diagonal=unit)
+        assert torch.equal(whole[:, :w], part)
+    rows = rhs.mT.contiguous()
+    whole = trsm.trsm_right_lower_t(t, rows)
+    assert torch.equal(whole[:w], trsm.trsm_right_lower_t(t, rows[:w]))
+
+
+def test_trsm_plan_fits_the_card(card):
+    for dtype in DTYPES:
+        for right in (False, True):
+            for nb, n in ((1, 1), (128, 16), (128, 8064), (256, 8064)):
+                p = trsm.plan(nb, n, dtype, right=right)
+                assert p["blocks"] * p["nc"] >= n > (p["blocks"] - 1) * p["nc"]
+                assert p["smem_bytes"] <= 227 * 1024
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m,nb", [(1, 1), (40, 16), (1000, 128), (3, 8)])
 def test_lu_panel_matches_plain_bitwise(card, dtype, m, nb):

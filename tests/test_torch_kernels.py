@@ -85,6 +85,16 @@ def test_trsm_lower_plain_matches_pallas(dtype, nb, w, unit):
     assert _rel(got, ref) < _tol(nb, w)
 
 
+def test_trsm_chain_refuses_a_cpu_tensor():
+    # the kernels' rounding contract is a check on the card, never a route
+    t = torch.eye(4, dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA device only"):
+        trsm.trsm_chain(t, torch.ones(4, 2, dtype=torch.float64))
+    with pytest.raises(ValueError, match="lower L only"):
+        trsm.trsm_chain(t, torch.ones(2, 4, dtype=torch.float64),
+                        lower=False, right=True)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("unit", [True, False])
 def test_trsm_upper_plain_matches_trsm_jnp(dtype, unit):
