@@ -28,11 +28,17 @@
    sides a block, strip rows, threads, shared memory) and is held bitwise
    to its contract run one thread a right-hand side (``trsm_chain``, the
    previous design, timed beside it); its times are the card's on a busy
-   card, with one call from an idle card beside them.  The fused panel
-   updates are held bitwise to the composed kernels, pivots included; the
-   QR, QRCP and Hessenberg panels within 4·k·eps of their plain versions,
-   k the longest chain of terms the kernel sums for one element, QRCP
-   pivots equal.
+   card, with one call from an idle card beside them.  The fused small LU
+   solve (128 x 16) the same way, bitwise the two chains (unit lower, then
+   upper), beside ``torch.linalg.lu_solve`` on both metrics.  The fused
+   panel updates are held bitwise to the composed kernels, pivots
+   included; the QR, QRCP and Hessenberg panels within 4·k·eps of their
+   plain versions, k the longest chain of terms the kernel sums for one
+   element, QRCP pivots equal.  The QR panel is also deterministic, its T
+   bitwise its LARFT entry's on the same V, its route (rows resident in
+   shared memory, or streamed) and k recorded, and it is run as well on a
+   65536-row panel, which takes the streamed route; it and ``larft`` are
+   timed on both metrics, the panel beside ``torch.geqrf``.
 4. main path: ``gesv`` (LU with partial pivoting, then the solves) through
    the port's entry points, under ``mtb``/``la``/``la2``/``la_mb`` at
    n = 8192 and ``rtm`` at n = 2048, plus n = 128 with block 128 (the fused
@@ -140,6 +146,7 @@ QR_RTM = (4096, 1024)            # rtm's launches grow as panels x tiles
 QR_WIDE = (1024, 2048)           # wide QR: the row-exhaustion stop
 RTM_N = 2048                     # rtm's per-tile launches grow as (n/b)^3
 SMALL_N = 128                    # one panel: the fused small solve
+QR_STREAMED_M = 65536            # a QR panel too tall for the SMs' shared memory
 EIG_N = 512                      # gehrd + eigvals of a symmetric input
 COND_N = 2048                    # gecon and getri
 SEED = 0
@@ -278,6 +285,16 @@ def main() -> int:
             e1.record()
             e1.synchronize()
             out.append(e0.elapsed_time(e1))
+        return statistics.median(out)
+
+    def wall_ms(fn, reps: int = 5) -> float:
+        """Median host ms of a synchronised call of ``fn``."""
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            out.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(out)
 
     def tolerance(dtype, k) -> float:
@@ -615,73 +632,124 @@ def main() -> int:
                   2 * BLOCK)
         del l21, panel_c
 
-        # fused small solve: packed 128 x 128 LU, 16 right-hand sides
+        # fused small solve: packed 128 x 128 LU, 16 right-hand sides; both
+        # sweeps on the TRSM's strip kernel, bitwise the chain pair (unit
+        # lower, then upper), timed as the TRSM rows are
         lu_s = torch.linalg.lu_factor(randn(SMALL_N, SMALL_N)).LU.contiguous()
         rhs_s = randn(SMALL_N, NRHS)
         ident = torch.arange(1, SMALL_N + 1, dtype=torch.int32, device=dev)
         sout = torch.empty_like(rhs_s)
-        got = trsm.lu_solve_small(lu_s, rhs_s, out=sout)
+
+        def solve_run():
+            return trsm.lu_solve_small(lu_s, rhs_s, out=sout)
+
+        def solve_chain():
+            return trsm.trsm_chain(lu_s, trsm.trsm_chain(
+                lu_s, rhs_s, lower=True, unit_diagonal=True), lower=False)
+
+        def solve_lib():
+            return torch.linalg.lu_solve(lu_s, ident, rhs_s)
+        got = solve_run()
         sync()
+        check(torch.equal(got, solve_chain()), f"lu_solve_small {dtype}: not "
+              "bitwise equal to the unit-lower then upper chain contract")
         err, mx = compare(got, trsm.lu_solve_small_plain(lu_s, rhs_s))
         res["lu_solve_small"] = dict(
-            shape=[SMALL_N, NRHS], rel_err=err, max_abs_err=mx,
+            shape=[SMALL_N, NRHS], plan=trsm.plan(SMALL_N, NRHS, dtype),
+            bitwise_equal_to_chain=True, rel_err=err, max_abs_err=mx,
             tol=tolerance(dtype, 2 * SMALL_N),   # two sweeps
-            ms=time_ms(lambda: trsm.lu_solve_small(lu_s, rhs_s, out=sout), 20),
+            ms=queued_ms(solve_run, 20), call_ms=time_ms(solve_run, 20),
+            chain_ms=queued_ms(solve_chain, 5),
             plain_ms=time_ms(lambda: trsm.lu_solve_small_plain(lu_s, rhs_s), 3),
-            library_ms=time_ms(
-                lambda: torch.linalg.lu_solve(lu_s, ident, rhs_s), 20),
+            library_ms=queued_ms(solve_lib, 20),
+            library_call_ms=time_ms(solve_lib, 20),
             bound=bound(2.0 * SMALL_N * SMALL_N * NRHS,
                         (SMALL_N * SMALL_N + 2 * SMALL_N * NRHS) * size))
 
         # QR panel (GEQR2 + LARFT) at the gels path's first panel,
-        # 16384 x 128, in place; its LARFT entry on the same V.  The
-        # reductions group differently from the plain version's, so the
-        # bound is relative, 4·k·eps on packed, tau and T, with k the
-        # longest chain of terms the kernel sums in turn for one element:
-        # a block's rows of the cooperative grid (G blocks), then the G
-        # block partials, then up to BLOCK terms of the T recurrence.
+        # 16384 x 128, in place, and on the streamed route (QR_STREAMED_M
+        # rows, more than the SMs' shared memory holds); its LARFT entry on
+        # the same V, whose T must be the panel's bitwise.  The reductions
+        # group differently from the plain version's, so the bound is
+        # relative, 4·k·eps on packed, tau and T, with k the longest chain
+        # of terms the kernel sums in turn for one element (the plan's
+        # "chain": a block's rows, a lane's share of the block partials and
+        # five shuffle steps, up to BLOCK - 1 terms of the T recurrence).
+        # ms on a busy card (queued_ms), call_ms one call from an idle card,
+        # each beside geqrf (no T) on the same metric; the in-place panel is
+        # timed on a fresh copy, the copy's own time subtracted.
         sfx = _build.SUFFIX[dtype]
 
         def chain(grid):
             return -(-QR_M // grid) + grid + BLOCK
 
-        g_qr = panel_qr._grid(f"repro_qr_panel_grid_{sfx}", QR_M, BLOCK)
-        g_larft = panel_qr._grid(f"repro_larft_grid_{sfx}", QR_M, BLOCK)
-        qpanel0 = randn(QR_M, BLOCK)
-        qk, qp = qpanel0.clone(), qpanel0.clone()
-        _, tau_k, t_k = panel_qr.qr_panel(qk)
-        _, tau_p, t_p = panel_qr.qr_panel_plain(qp)
-        sync()
-        errs = {what: compare(x, y)[0] for what, x, y in (
-            ("packed", qk, qp), ("tau", tau_k, tau_p), ("T", t_k, t_p))}
-        work = torch.empty_like(qpanel0)
-        copy_ms = time_ms(lambda: work.copy_(qpanel0), 10)
-        geqr2 = sum(4.0 * (QR_M - j) * (BLOCK - j) for j in range(BLOCK))
-        gram = float(QR_M) * BLOCK * (BLOCK - 1) + BLOCK ** 3 / 3.0
-        res["qr_panel"] = dict(
-            shape=[QR_M, BLOCK], rel_err=max(errs.values()), rel_errs=errs,
-            max_abs_err=compare(qk, qp)[1], grid=g_qr,
-            tol=tolerance(dtype, chain(g_qr)),
-            ms=time_ms(lambda: panel_qr.qr_panel(work.copy_(qpanel0)), 10)
-            - copy_ms,
-            plain_ms=time_ms(
-                lambda: panel_qr.qr_panel_plain(work.copy_(qpanel0)), 2)
-            - copy_ms,
-            library_ms=time_ms(lambda: torch.geqrf(qpanel0), 10),
-            bound=bound(geqr2 + gram, (2 * QR_M * BLOCK + BLOCK * BLOCK
-                                       + BLOCK) * size))
-        v_q = qr.unpack_v(qk, BLOCK)
+        def qr_row(mq):
+            pl = panel_qr.plan(mq, BLOCK, dtype)
+            qpanel0 = randn(mq, BLOCK)
+            qk, qp = qpanel0.clone(), qpanel0.clone()
+            _, tau_k, t_k = panel_qr.qr_panel(qk)
+            _, tau_p, t_p = panel_qr.qr_panel_plain(qp)
+            again = panel_qr.qr_panel(qpanel0.clone())
+            sync()
+            check(all(torch.equal(x, y) for x, y in zip(again, (qk, tau_k, t_k))),
+                  f"qr_panel {dtype} {mq}x{BLOCK}: not deterministic")
+            errs = {what: compare(x, y)[0] for what, x, y in (
+                ("packed", qk, qp), ("tau", tau_k, tau_p), ("T", t_k, t_p))}
+            v_q = qr.unpack_v(qk, BLOCK)
+            t_l = panel_qr.larft(v_q, tau_k)
+            sync()
+            check(torch.equal(t_l, t_k), f"qr_panel {dtype} {mq}x{BLOCK}: T "
+                  "not bitwise the larft entry's on the same V")
+            work = torch.empty_like(qpanel0)
+
+            def run():
+                return panel_qr.qr_panel(work.copy_(qpanel0))
+
+            def copy():
+                return work.copy_(qpanel0)
+
+            def lib():
+                return torch.geqrf(qpanel0)
+            geqr2 = sum(4.0 * (mq - j) * (BLOCK - j) for j in range(BLOCK))
+            gram = float(mq) * BLOCK * (BLOCK - 1) + BLOCK ** 3 / 3.0
+            row = dict(
+                shape=[mq, BLOCK], route=pl["route"], grid=pl["grid"],
+                rows_per_block=pl["chunk"], chain=pl["chain"],
+                deterministic=True, t_bitwise_larft=True,
+                rel_err=max(errs.values()), rel_errs=errs,
+                max_abs_err=compare(qk, qp)[1],
+                tol=tolerance(dtype, pl["chain"]),
+                ms=queued_ms(run, 10) - queued_ms(copy, 10),
+                call_ms=time_ms(run, 10) - time_ms(copy, 10),
+                plain_ms=time_ms(lambda: panel_qr.qr_panel_plain(copy()), 1)
+                - time_ms(copy, 10),
+                library_ms=queued_ms(lib, 10), library_call_ms=time_ms(lib, 10),
+                bound=bound(geqr2 + gram, (2 * mq * BLOCK + BLOCK * BLOCK
+                                           + BLOCK) * size))
+            del qpanel0, qk, qp, work, again
+            return row, v_q, tau_k, pl, gram
+
+        res["qr_panel"], v_q, tau_k, pl, gram = qr_row(QR_M)
+        check(res["qr_panel"]["route"] == "resident",
+              f"qr_panel {dtype}: {QR_M}x{BLOCK} not on the resident route")
         t_l = panel_qr.larft(v_q, tau_k)
         sync()
         err, mx = compare(t_l, panel_qr.larft_plain(v_q, tau_k))
         res["larft"] = dict(
-            shape=[QR_M, BLOCK], rel_err=err, max_abs_err=mx, grid=g_larft,
-            tol=tolerance(dtype, chain(g_larft)),
-            ms=time_ms(lambda: panel_qr.larft(v_q, tau_k), 10),
+            shape=[QR_M, BLOCK], rel_err=err, max_abs_err=mx, grid=pl["grid"],
+            chain=pl["chain"], tol=tolerance(dtype, pl["chain"]),
+            ms=queued_ms(lambda: panel_qr.larft(v_q, tau_k), 10),
+            call_ms=time_ms(lambda: panel_qr.larft(v_q, tau_k), 10),
             plain_ms=time_ms(lambda: panel_qr.larft_plain(v_q, tau_k), 2),
             library_ms=None,
             bound=bound(gram, (QR_M * BLOCK + BLOCK + BLOCK * BLOCK) * size))
-        del qpanel0, qk, qp, work, v_q
+        del v_q, t_l
+        stream_row = qr_row(QR_STREAMED_M)[0]
+        check(stream_row["route"] == "streamed", f"qr_panel {dtype}: "
+              f"{QR_STREAMED_M}x{BLOCK} not on the streamed route")
+        check(stream_row["rel_err"] <= stream_row["tol"], f"qr_panel {dtype} "
+              f"streamed: kernel vs plain rel err {stream_row['rel_err']}")
+        res["qr_panel"]["streamed"] = stream_row
 
         # xLAQPS: the global path's first block (16384 x 4096, 128 steps)
         # and a qrcp_local window (16384 x 128); pivots equal to the plain
@@ -806,6 +874,7 @@ def main() -> int:
 
     npanels = -(-N // BLOCK)
     flops = 2.0 * N ** 3 / 3.0
+    small = {}   # dtype -> the n = 128 operands and residual
     ops.reset_launches()
     for dtype in (torch.float64, torch.float32):
         gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -892,15 +961,22 @@ def main() -> int:
         check(res < RESIDUAL_LIMIT, f"gesv n={SMALL_N} {dtype}: residual {res}")
         check(trsm.lu_solve_small.launches == before + 1,
               "gesv at one panel did not take the fused small solve")
-        emit({"phase": "gesv", "dtype": str(dtype), "n": SMALL_N,
-              "block": SMALL_N, "variant": "la", "scaled_residual": res,
-              "small_solve": True})
+        small[dtype] = (a3.clone(), b3.clone(), res)
         del a, b, a2, b2, a3, b3, f_mtb, f_rtm, x
     counts = ops.launches()
     for name in ("gemm_accum", "trsm", "lu_panel", "lu_solve_small",
                  "fused_lu_panel_update"):
         check(counts[name] > 0, f"kernel {name} was not launched on the "
               "gesv path")
+    # n = 128 timed after the path's counts are read: these launches are
+    # not the path's
+    for dtype, (a3, b3, res) in small.items():
+        emit({"phase": "gesv", "dtype": str(dtype), "n": SMALL_N,
+              "block": SMALL_N, "variant": "la", "scaled_residual": res,
+              "small_solve": True,
+              "gesv_ms": wall_ms(lambda: gesv(a3, b3, SMALL_N)),
+              "cusolver_ms": wall_ms(lambda: torch.linalg.solve(a3, b3))})
+    del small, a3, b3
 
     # ---- 5. posv: Cholesky on a symmetric positive-definite input ----------
     chol_flops = N ** 3 / 3.0
@@ -1868,7 +1944,7 @@ def main() -> int:
                     "chain_ms", "call_ms", "library_call_ms"):
             if key in r:
                 out[key] = r[key]
-        for key in ("window", "k_half", "n_rtm"):
+        for key in ("window", "k_half", "n_rtm", "streamed"):
             if key in r:
                 out[key] = numbers(r[key])
         return out

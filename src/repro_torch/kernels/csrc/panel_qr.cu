@@ -8,28 +8,61 @@
 // solve's Q^T apply, form_q and the qrcp_local panels.
 //
 // What bounds it on an H100: the panel is a chain of nb dependent columns.
-// Each needs two reductions over all m rows (the column norm, then
-// w = tau * v^T A[:, j+1:]) before the rank-1 update can start: about
-// 2*m*nb^2 flops over 2*m*nb elements, a few flops per byte, and every
-// column waits for the one before.  So it is bound by latency (two
-// grid-wide barriers a column), not by bytes or flops.
+// Each needs a reduction over all m rows (the column norm and
+// v^T A[:, j+1:]) before its rank-1 update can start: about 2*m*nb^2 flops
+// over 2*m*nb elements, a few flops per byte, and every column waits for
+// the one before.  So it is bound by latency (a grid-wide barrier a column
+// and the cross-block sums after it), not by bytes or flops.
 //
-// Design: the TPU kernel held the panel in one VMEM residency.  The main
-// path's panel is 16384 x 128, 16 MiB in f64, far above one block's 227 KB
-// of shared memory, so the panel stays in device memory (it fits the 50 MB
-// L2) and a cooperative grid over its rows factors it, as panel_lu.cu does.
-// Each block owns a contiguous chunk of rows.  Per column j:
-//   1. every block sums the published partial norms in the same order,
-//      forms beta, tau and the reflector (beta = -sign(alpha)*|x|, sign(0)
-//      = +1; a zero column gives tau = 0 and H = I), scales its rows of v,
-//      and publishes its partial of v^T A[:, j+1:]; one grid barrier;
-//   2. every block sums those partials in the same order, applies the
-//      rank-1 update to its rows, and publishes its partial norm of column
-//      j+1; one grid barrier.
-// LARFT then follows in the same launch: each block publishes its partial
-// Gram V^T V over its rows (the strict upper triangle), the grid sums the
-// partials in block order, and block 0 runs the nb-step T recurrence
-// T[:j, j] = -tau_j * T[:j, :j] * (V^T V)[:j, j], T[j, j] = tau_j.
+// Design: a cooperative grid of G blocks of QR_THREADS threads, at most one
+// block an SM (G = SMs for tall panels, fewer for short ones: at least
+// QR_MIN_ROWS rows a block).  Each block owns a contiguous chunk of rows.
+//   * Rows resident: where the chunk fits shared memory (about 208 rows of
+//     nb = 128 in f64, so m up to about 27000 on 132 SMs) the block loads
+//     it once, factors all nb columns there and writes it back once.
+//     Otherwise the same code runs on the rows in device memory (the
+//     streamed route); the plan picks the route by shape.
+//   * Column j is two short grid barriers.  Before the first, each block
+//     has published, for c = j, its partial s_i = sum_{r > c} A[r, c] *
+//     A[r, i] for i >= c (s_c is its part of |x|^2 below the diagonal), and
+//     the owner of row c that row.  Then every block sums column c's
+//     partials itself (one warp: the same bits everywhere), forms alpha =
+//     A[c, c], |x|^2 = alpha^2 + s_c, beta, tau and denom = alpha - beta,
+//     sums the partials of its share of the columns i > c (one column a
+//     block when G >= nb) and publishes w_i = tau * (A[c, i] + s_i /
+//     denom): the identity v^T A = A[c, :] + x^T A / denom over the rows
+//     below c, so v need not be scaled before the sums.  After the second
+//     barrier every block reads w and runs the column pass.  A first
+//     design with one barrier, every block summing every column's G
+//     partials, was slower on an H100: 132 blocks each reading the 132
+//     partials of up to 127 columns from L2 cost more than a second
+//     barrier (PERF.md, section 6).
+//   * A column pass: each warp owns the rows rr = warp (mod QR_WARPS) of
+//     the chunk.  First its lanes take one row each: v = x / denom (row j
+//     keeps its implicit 1 and takes beta) and the update of column c =
+//     j + 1.  Then its lanes take PASS_COLS columns each (consecutive
+//     lanes on consecutive columns, so shared memory is read without bank
+//     conflicts) and walk the warp's rows: the update of columns > c and
+//     the partial s_i of the next column in one FMA chain a column; the
+//     warps' partials are added in warp order.  Indices inside the block
+//     are 32-bit where its rows are resident.
+//   * Cross-block sums by a warp: lane l takes blocks l, l+32, ... in turn,
+//     then a butterfly of shuffles.
+//   * LARFT in the same launch and residency: each block forms its partial
+//     Gram V^T V from the rows it holds (a warp a tile of 8 x 128 entries,
+//     rows in turn), a warp a pair sums the G partials, and the rows of T
+//     are spread over the blocks, a warp a row: T[i, l] for ascending l
+//     from the running sums in the lanes (the note at larft_finish), with
+//     the Gram in shared memory.  The larft entry runs the same routines on
+//     an explicit V over the same grid and rows, so its T is bitwise the
+//     panel's for the same V.  (Block 0 alone running the column recurrence,
+//     a column at a time, was most of LARFT's time.)
+//
+// Rounding: the longest chain of terms one element sums in turn is the Gram
+// entry's chunk rows, then ceil(G/32) block partials and five shuffle steps,
+// then up to nb - 1 terms of the recurrence; GEQR2's sums are shorter
+// (ceil(chunk/QR_WARPS) + QR_WARPS, then the same cross-block sum).
+// kernels/panel_qr.py's plan() returns that count.
 //
 // Determinism: every cross-block reduction goes through per-block partials
 // in device memory, summed in a fixed order; no floating-point atomics.  The
@@ -37,199 +70,536 @@
 // bitwise equal to mtb.  The kernel is not bitwise equal to its plain
 // version (the reductions group differently); it is held to it within a
 // relative bound.
+#include <type_traits>
+
 #include "dense.cuh"
 
+constexpr int QR_THREADS = 512, QR_WARPS = QR_THREADS / 32;
+constexpr int64_t QR_MIN_ROWS = 32;  // rows a block at least
+constexpr int QR_MAX_BLOCKS = 256;   // so a lane sums at most 8 block partials
+constexpr int LANE_PARTIALS = QR_MAX_BLOCKS / 32;
+constexpr int T_GROUP = 256;         // columns of a row of T a warp holds at once
+constexpr int ROW_SLOTS = T_GROUP / 32;
+constexpr int GRAM_ROWS = 8;         // a warp's Gram tile: 8 rows by 128 columns
+constexpr int PASS_COLS = 4;         // columns a lane updates at once
+constexpr int PASS_ROWS = 4;         // rows a warp loads at once
+
+// The workspace of a launch of G blocks (elements of T): the partials s of
+// column c ([nb][G]), row c ([nb]), w ([nb]), the Gram partials ([G][P],
+// P = nb*(nb-1)/2 pairs) and the Gram (row-major nb x nb, the strict upper
+// part written).
 template <typename T>
-__host__ __device__ constexpr size_t qr_smem(int64_t nb) {
-  return (nb + PANEL_THREADS) * sizeof(T);
+struct Workspace {
+  T *ps, *prow, *pw, *pgram, *gram;
+  __host__ __device__ static int64_t elems(int64_t nb, int64_t G) {
+    return nb * G + 2 * nb + G * (nb * (nb - 1) / 2) + nb * nb;
+  }
+  __device__ Workspace(T* ws, int64_t nb, int64_t G)
+      : ps(ws), prow(ws + nb * G), pw(prow + nb), pgram(pw + nb),
+        gram(pgram + nb * (nb - 1) / 2 * G) {}
+};
+
+// Shared memory a block needs besides its rows: s, row c and w ([nb] each)
+// and the warps' partials ([QR_WARPS][nb]).
+template <typename T>
+__host__ __device__ constexpr size_t qr_extras(int64_t nb) {
+  return static_cast<size_t>(3 + QR_WARPS) * nb * sizeof(T);
 }
 
-// Sum of x over the block's threads in a fixed tree order; every thread
-// gets the result.  `red` holds PANEL_THREADS values.
+// ... and the Gram in shared memory for the LARFT recurrence.
 template <typename T>
-__device__ T block_sum(T x, T* red) {
-  const int tid = threadIdx.x;
-  red[tid] = x;
+__host__ __device__ constexpr size_t qr_recurrence_smem(int64_t nb) {
+  return qr_extras<T>(nb) + static_cast<size_t>(nb * nb) * sizeof(T);
+}
+
+__device__ __forceinline__ unsigned dynamic_smem_bytes() {
+  unsigned n;
+  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(n));
+  return n;
+}
+
+// The rows [r0, r0 + n) of the panel: row rr of them at p + rr * ld.
+template <typename T, typename I>
+struct Rows {
+  T* p;
+  I ld;
+  int64_t r0;
+  int n;
+  __device__ __forceinline__ T& at(int rr, int c) const { return p[rr * ld + c]; }
+};
+
+__device__ __forceinline__ int clamp_to(int64_t x, int lo, int hi) {
+  return static_cast<int>(x < lo ? lo : (x > hi ? hi : x));
+}
+
+// Sum of x over the warp, the same bits in every lane.
+template <typename T>
+__device__ __forceinline__ T warp_sum(T x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// Lane `lane`'s share of the G block partials at src[g * stride], g =
+// lane, lane+32, ..., in turn.
+template <typename T>
+__device__ __forceinline__ T lane_partials(const T* src, int64_t stride, int G, int lane) {
+  T acc = T(0);
+#pragma unroll
+  for (int k = 0; k < LANE_PARTIALS; ++k) {
+    const int g = lane + 32 * k;
+    if (g < G) acc += __ldcg(src + g * stride);
+  }
+  return acc;
+}
+
+// The reflector of column j, the same in every block.
+template <typename T>
+struct Reflector {
+  T tau, denom, diag;  // diag: the new A[j, j]
+};
+
+// Every block, column c: warp 0 sums column c's partials (|x|^2 below the
+// diagonal) and reads row c, which give the reflector; the other warps sum
+// the block's share of the columns i > c (i - c - 1 = block, modulo G), and
+// the block publishes their w_i = tau * (A[c, i] + s_i / denom) into pw.
+template <typename T>
+__device__ __forceinline__ Reflector<T> reflector(int nb, int G, int c, const T* ps,
+                                                  const T* prow, T* pw, T* sv, T* rv) {
+  const int lane = threadIdx.x & 31, q = threadIdx.x >> 5;
+  const int first = c + 1 + blockIdx.x;
+  for (int i = q == 0 ? c : first + (q - 1) * G; i < nb;
+       i += q == 0 ? nb : (QR_WARPS - 1) * G) {
+    const T s = warp_sum(lane_partials(ps + static_cast<int64_t>(i) * G, 1, G, lane));
+    if (lane == 0) {
+      sv[i] = s;
+      rv[i] = __ldcg(prow + i);
+    }
+  }
   __syncthreads();
-  for (int s = PANEL_THREADS / 2; s > 0; s >>= 1) {
-    if (tid < s) red[tid] += red[tid + s];
-    __syncthreads();
+  // beta = -sign(alpha)*|x|, sign(0) = +1; a zero column gives tau = 0, H = I
+  const T alpha = rv[c];
+  const T xnorm = sqrt_rn(fma(alpha, alpha, sv[c]));
+  const bool safe = xnorm > T(0);
+  const T beta = alpha >= T(0) ? -xnorm : xnorm;
+  Reflector<T> rf;
+  rf.tau = safe ? div_rn(beta - alpha, beta) : T(0);
+  rf.denom = safe ? alpha - beta : T(1);
+  rf.diag = safe ? beta : alpha;
+  for (int i = first + static_cast<int>(threadIdx.x) * G; i < nb; i += QR_THREADS * G)
+    pw[i] = rf.tau * (rv[i] + div_rn(sv[i], rf.denom));
+  return rf;
+}
+
+// One pass over the block's rows: reflector j applied to them (j >= 0;
+// rows >= j, columns > j), then, while c = j + 1 < steps, the partials of
+// column c (s_i into ps[i][blk], i >= c) and row c into prow by its owner.
+template <typename T, typename I>
+__device__ __forceinline__ void column_pass(const Rows<T, I>& A, int nb, int steps, int j, int G,
+                                            const Reflector<T>& rf, const T* wv, T* red, T* ps,
+                                            T* prow) {
+  const int lane = threadIdx.x & 31, q = threadIdx.x >> 5;
+  const int c = j + 1;
+  const bool apply = j >= 0, part = c < steps;
+  // rows j and c as local rows (clamped to [-1, n]); the warp's rows are
+  // rr = q (mod QR_WARPS), from its first row >= max(jl, 0)
+  const int jl = clamp_to(j - A.r0, -1, A.n), cl = clamp_to(c - A.r0, -1, A.n);
+  const int lo = max(jl, 0);
+  const int first = q + (lo > q ? (lo - q + QR_WARPS - 1) / QR_WARPS : 0) * QR_WARPS;
+  if (apply) {  // column j becomes v (row j: beta), then column c takes its update
+    for (int rr = first + lane * QR_WARPS; rr < A.n; rr += 32 * QR_WARPS) {
+      T v;
+      if (rr == jl) {
+        v = T(1);
+        A.at(rr, j) = rf.diag;
+      } else {
+        v = div_rn(A.at(rr, j), rf.denom);
+        A.at(rr, j) = v;
+      }
+      if (c < nb) A.at(rr, c) = fma(-v, wv[c], A.at(rr, c));
+    }
+    __syncwarp();
   }
-  const T r = red[0];
+  // the warp's first row below c: rows j and c (at most two) come before it
+  const int below = q + (cl + 1 > q ? (cl + 1 - q + QR_WARPS - 1) / QR_WARPS : 0) * QR_WARPS;
+  for (int i0 = (part ? c : c + 1) + lane; i0 < nb; i0 += 32 * PASS_COLS) {
+    T s[PASS_COLS], wi[PASS_COLS];
+    bool upd[PASS_COLS];
+#pragma unroll
+    for (int u = 0; u < PASS_COLS; ++u) {
+      const int i = i0 + 32 * u;
+      s[u] = T(0);
+      upd[u] = apply && i > c && i < nb;
+      wi[u] = upd[u] ? wv[i] : T(0);
+    }
+    for (int rr = first; rr < min(below, A.n); rr += QR_WARPS) {  // rows j, c
+      const T v = !apply ? T(0) : (rr == jl ? T(1) : A.at(rr, j));
+#pragma unroll
+      for (int u = 0; u < PASS_COLS; ++u) {
+        const int i = i0 + 32 * u;
+        if (i >= nb) continue;
+        T x = A.at(rr, i);
+        if (upd[u]) {
+          x = fma(-v, wi[u], x);
+          A.at(rr, i) = x;
+        }
+        if (part && rr == cl) prow[i] = x;
+      }
+    }
+    // the rows below c, PASS_ROWS at a time, all loaded before any store
+    for (int rr0 = below; rr0 < A.n; rr0 += QR_WARPS * PASS_ROWS) {
+      T v[PASS_ROWS], ac[PASS_ROWS], x[PASS_ROWS][PASS_COLS];
+#pragma unroll
+      for (int g = 0; g < PASS_ROWS; ++g) {
+        const int rr = min(rr0 + g * QR_WARPS, A.n - 1);
+        v[g] = apply ? A.at(rr, j) : T(0);
+        ac[g] = part ? A.at(rr, c) : T(0);
+#pragma unroll
+        for (int u = 0; u < PASS_COLS; ++u) x[g][u] = A.at(rr, min(i0 + 32 * u, nb - 1));
+      }
+#pragma unroll
+      for (int g = 0; g < PASS_ROWS; ++g) {
+        const int rr = rr0 + g * QR_WARPS;
+        if (rr >= A.n) break;
+#pragma unroll
+        for (int u = 0; u < PASS_COLS; ++u) {
+          if (upd[u]) {
+            x[g][u] = fma(-v[g], wi[u], x[g][u]);
+            A.at(rr, i0 + 32 * u) = x[g][u];
+          }
+          if (part) s[u] = fma(ac[g], x[g][u], s[u]);
+        }
+      }
+    }
+    if (part)
+#pragma unroll
+      for (int u = 0; u < PASS_COLS; ++u)
+        if (i0 + 32 * u < nb) red[q * nb + i0 + 32 * u] = s[u];
+  }
+  if (!part) return;
   __syncthreads();
-  return r;
+  for (int i = c + threadIdx.x; i < nb; i += QR_THREADS) {
+    T s = red[i];
+    for (int w = 1; w < QR_WARPS; ++w) s += red[w * nb + i];
+    ps[static_cast<int64_t>(i) * G + blockIdx.x] = s;
+  }
 }
 
-// V[r, i]: read as stored (an unpacked V), or from a packed panel (unit
-// diagonal, zero above it).
-template <typename T, bool PACKED>
-__device__ __forceinline__ T v_at(const T* v, int64_t ldv, int64_t r, int64_t i) {
-  if (!PACKED) return v[r * ldv + i];
-  return r > i ? v[r * ldv + i] : (r == i ? T(1) : T(0));
+// V[r, col] from the rows: as stored (an unpacked V), or from a packed
+// panel (unit diagonal, zero above it); zero past nb.
+template <typename T, bool PACKED, typename I>
+__device__ __forceinline__ T v_at(const Rows<T, I>& A, int rr, int col, int nb) {
+  if (col >= nb) return T(0);
+  if (!PACKED) return A.at(rr, col);
+  const int64_t r = A.r0 + rr;
+  return r > col ? A.at(rr, col) : (r == col ? T(1) : T(0));
 }
 
-// LARFT over a cooperative grid: T (nb x nb, row-major) from V (m x nb) and
-// tau.  Pairs (i, j), i < j, are numbered p = j*(j-1)/2 + i.
-template <typename T, bool PACKED>
-__device__ void larft_grid(int64_t m, int64_t nb, const T* v, int64_t ldv, const T* tau,
-                           T* t, T* pgram, T* gram) {
-  cg::grid_group grid = cg::this_grid();
-  const int G = gridDim.x, blk = blockIdx.x, tid = threadIdx.x;
-  int64_t chunk, r0, r1;
-  owned_rows(m, G, blk, &chunk, &r0, &r1);
-  const int64_t P = nb * (nb - 1) / 2;
-
-  // partial Gram over the block's rows
-  int64_t j = 1, base = 0;  // pair p = base + i lies in column j
-  for (int64_t p = tid; p < P; p += PANEL_THREADS) {
-    while (p >= base + j) { base += j; ++j; }
-    const int64_t i = p - base;
-    T acc = T(0);
-    for (int64_t r = r0; r < r1; ++r)
-      acc = fma(v_at<T, PACKED>(v, ldv, r, i), v_at<T, PACKED>(v, ldv, r, j), acc);
-    pgram[blk * P + p] = acc;
-  }
-  grid.sync();
-
-  // the Gram, summed over the blocks in block order
-  for (int64_t p = static_cast<int64_t>(blk) * PANEL_THREADS + tid; p < P;
-       p += static_cast<int64_t>(G) * PANEL_THREADS) {
-    T acc = T(0);
-    for (int g = 0; g < G; ++g) acc += pgram[g * P + p];
-    gram[p] = acc;
-  }
-  grid.sync();
-  if (blk != 0) return;
-
-  // the recurrence; row i of T is written and read by one thread only
-  for (int64_t jj = 0; jj < nb; ++jj) {
-    const T tj = tau[jj];
-    const int64_t col = jj * (jj - 1) / 2;
-    for (int64_t i = tid; i < nb; i += PANEL_THREADS) {
-      T val = T(0);
-      if (i < jj) {
-        T acc = T(0);
-        for (int64_t l = i; l < jj; ++l) acc = fma(t[i * nb + l], gram[col + l], acc);
-        val = -tj * acc;
-      } else if (i == jj) {
-        val = tj;
+// The block's partial Gram over its rows, in turn: pgram[blk][p] for the
+// pairs i < j, p = j*(j-1)/2 + i.  A warp a tile of GRAM_ROWS rows i by 128
+// columns j (j = lane + 32*x): the tile's rows of V are read by every lane
+// alike and its columns by consecutive lanes, so shared memory serves both
+// without bank conflicts.
+template <typename T, bool PACKED, typename I>
+__device__ __forceinline__ void gram_partial(const Rows<T, I>& A, int nb, T* pgram) {
+  const int lane = threadIdx.x & 31, q = threadIdx.x >> 5;
+  const int64_t P = static_cast<int64_t>(nb) * (nb - 1) / 2;
+  T* out = pgram + blockIdx.x * P;
+  const int tj = (nb + 127) / 128, tiles = (nb + GRAM_ROWS - 1) / GRAM_ROWS * tj;
+  for (int tile = q; tile < tiles; tile += QR_WARPS) {
+    const int i0 = tile / tj * GRAM_ROWS, jt = tile % tj * 128;
+    if (i0 >= jt + 127) continue;  // no pair i < j in the tile
+    const int j0 = jt + lane;
+    T acc[GRAM_ROWS][4];
+#pragma unroll
+    for (int u = 0; u < GRAM_ROWS; ++u)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) acc[u][x] = T(0);
+    // a packed panel's rows r < nb hold R above the diagonal: V by v_at
+    const int head = PACKED ? clamp_to(nb - A.r0, 0, A.n) : 0;
+    for (int rr = 0; rr < head; ++rr) {
+      T va[GRAM_ROWS], vb[4];
+#pragma unroll
+      for (int u = 0; u < GRAM_ROWS; ++u) va[u] = v_at<T, PACKED>(A, rr, i0 + u, nb);
+#pragma unroll
+      for (int x = 0; x < 4; ++x) vb[x] = v_at<T, PACKED>(A, rr, j0 + 32 * x, nb);
+#pragma unroll
+      for (int u = 0; u < GRAM_ROWS; ++u)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[u][x] = fma(va[u], vb[x], acc[u][x]);
+    }
+    // the other rows as stored; columns past nb read column nb - 1, and
+    // their products are never written
+    int ci[GRAM_ROWS], cj[4];
+#pragma unroll
+    for (int u = 0; u < GRAM_ROWS; ++u) ci[u] = min(i0 + u, nb - 1);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) cj[x] = min(j0 + 32 * x, nb - 1);
+    for (int rr = head; rr < A.n; ++rr) {
+      T va[GRAM_ROWS], vb[4];
+#pragma unroll
+      for (int u = 0; u < GRAM_ROWS; ++u) va[u] = A.at(rr, ci[u]);
+#pragma unroll
+      for (int x = 0; x < 4; ++x) vb[x] = A.at(rr, cj[x]);
+#pragma unroll
+      for (int u = 0; u < GRAM_ROWS; ++u)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[u][x] = fma(va[u], vb[x], acc[u][x]);
+    }
+#pragma unroll
+    for (int u = 0; u < GRAM_ROWS; ++u)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int i = i0 + u, j = j0 + 32 * x;
+        if (i < j && j < nb) out[static_cast<int64_t>(j) * (j - 1) / 2 + i] = acc[u][x];
       }
-      t[i * nb + jj] = val;
-    }
   }
 }
 
-// GEQR2 over a cooperative grid (the note at the top says how).
+// After every block's gram_partial: the Gram summed over the blocks (a warp
+// a pair), then T (row-major, nb x nb, written whole), a warp a row, the
+// rows spread over the blocks.  The rows of T are independent: lane
+// holds the running sums of T[i, j] for its columns j = lane + 32*k, and
+// as T[i, l] becomes final (l ascending: tau_i at l = i, else -tau_l times
+// its sum) it is broadcast and every column j > l takes the term
+// T[i, l] * Gram[l, j].  Each sum so takes its terms in ascending l, one
+// chain, as the column recurrence T[:j, j] = -tau_j * T[:j, :j] * Gram[:j, j]
+// would.  A warp holds T_GROUP columns of the row at once; a wider panel's
+// later groups first take the terms of the row's final T[i, l] of the
+// earlier groups (read back from t), so the order is the same.  The Gram is
+// read from the shared memory at `tail` where the launch gave
+// qr_recurrence_smem(nb) bytes, else from the workspace.
 template <typename T>
-__device__ void geqr2_grid(int64_t m, int64_t nb, T* a, int64_t lda, T* tau, T* pw,
-                           T* pn, unsigned char* smem) {
+__device__ __forceinline__ void larft_finish(int nb, const T* tau, T* t, const Workspace<T>& ws, T* tail) {
   cg::grid_group grid = cg::this_grid();
-  T* w = reinterpret_cast<T*>(smem);  // [nb]
-  T* red = w + nb;                     // [PANEL_THREADS]
-  const int G = gridDim.x, blk = blockIdx.x, tid = threadIdx.x;
-  int64_t chunk, r0, r1;
-  owned_rows(m, G, blk, &chunk, &r0, &r1);
-  const int64_t steps = min(m, nb);
-
-  {  // partial norm of column 0
-    T s = T(0);
-    for (int64_t r = r0 + tid; r < r1; r += PANEL_THREADS) s = fma(a[r * lda], a[r * lda], s);
-    s = block_sum(s, red);
-    if (tid == 0) pn[blk] = s;
+  const int G = gridDim.x, lane = threadIdx.x & 31, q = threadIdx.x >> 5;
+  const int64_t P = static_cast<int64_t>(nb) * (nb - 1) / 2;
+  grid.sync();
+  for (int e = blockIdx.x * QR_WARPS + q; e < nb * nb; e += G * QR_WARPS) {
+    const int l = e / nb, j = e % nb;
+    if (l >= j) continue;
+    const T s = warp_sum(
+        lane_partials(ws.pgram + static_cast<int64_t>(j) * (j - 1) / 2 + l, P, G, lane));
+    if (lane == 0) ws.gram[e] = s;
   }
   grid.sync();
-
-  for (int64_t j = 0; j < steps; ++j) {
-    // 1. the reflector, the same in every block
-    T ss = T(0);
-    for (int g = 0; g < G; ++g) ss += pn[g];
-    const T alpha = a[j * lda + j];
-    const T xnorm = sqrt(ss);
-    const bool safe = xnorm > T(0);
-    const T beta = alpha >= T(0) ? -xnorm : xnorm;
-    const T tj = safe ? (beta - alpha) / beta : T(0);
-    const T denom = safe ? alpha - beta : T(1);
-    for (int64_t r = max(r0, j + 1) + tid; r < r1; r += PANEL_THREADS)
-      a[r * lda + j] = a[r * lda + j] / denom;
+  if (static_cast<int>(blockIdx.x) >= nb) return;  // no row of T here
+  const T* gram = ws.gram;
+  if (dynamic_smem_bytes() >= qr_recurrence_smem<T>(nb)) {
+    // rows l >= blockIdx.x, the ones this block's rows of T read
+    for (int e = blockIdx.x * nb + threadIdx.x; e < nb * nb; e += QR_THREADS)
+      tail[e] = __ldcg(ws.gram + e);
+    gram = tail;
     __syncthreads();
-    const int64_t rs = max(r0, j);
-    for (int64_t i = j + 1 + tid; i < nb; i += PANEL_THREADS) {
-      T acc = T(0);
-      for (int64_t r = rs; r < r1; ++r)
-        acc = fma(r == j ? T(1) : a[r * lda + j], a[r * lda + i], acc);
-      pw[blk * nb + i] = acc;
-    }
-    grid.sync();
-
-    // 2. w = tau * v^T A[:, j+1:], then the rank-1 update of own rows
-    for (int64_t i = j + 1 + tid; i < nb; i += PANEL_THREADS) {
-      T acc = T(0);
-      for (int g = 0; g < G; ++g) acc += pw[g * nb + i];
-      w[i] = tj * acc;
-    }
-    __syncthreads();
-    const int64_t wc = nb - j - 1;
-    if (rs < r1 && wc > 0) {
-      const int64_t total = (r1 - rs) * wc;
-      for (int64_t e = tid; e < total; e += PANEL_THREADS) {
-        const int64_t r = rs + e / wc, i = j + 1 + e % wc;
-        const T vr = r == j ? T(1) : a[r * lda + j];
-        a[r * lda + i] = fma(-vr, w[i], a[r * lda + i]);
+  }
+  for (int i = blockIdx.x + G * q; i < nb; i += G * QR_WARPS) {
+    T* ti = t + static_cast<int64_t>(i) * nb;
+    for (int j0 = 0; j0 < nb; j0 += T_GROUP) {  // T[i, j0 + 32*k + lane]
+      T acc[ROW_SLOTS], tv[ROW_SLOTS], tl[ROW_SLOTS];
+#pragma unroll
+      for (int k = 0; k < ROW_SLOTS; ++k) {
+        const int j = j0 + 32 * k + lane;
+        acc[k] = T(0);
+        tv[k] = T(0);
+        tl[k] = j < nb ? __ldcg(tau + j) : T(0);
       }
+      for (int l = i; l < j0; ++l) {  // the earlier groups' final T[i, l]
+        const T til = ti[l];
+        const T* gl = gram + static_cast<int64_t>(l) * nb;
+#pragma unroll
+        for (int kk = 0; kk < ROW_SLOTS; ++kk) {
+          const int j = j0 + 32 * kk + lane;
+          if (j < nb) acc[kk] = fma(til, gl[j], acc[kk]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < ROW_SLOTS; ++k) {
+        for (int l32 = 0; l32 < 32; ++l32) {
+          const int l = j0 + 32 * k + l32;
+          if (l >= nb) break;
+          if (l < i) continue;
+          const T mine = l == i ? tl[k] : -tl[k] * acc[k];  // lane l32's is T[i, l]
+          const T til = __shfl_sync(0xffffffffu, mine, l32);
+          if (lane == l32) tv[k] = til;
+          const T* gl = gram + static_cast<int64_t>(l) * nb;
+#pragma unroll
+          for (int kk = k; kk < ROW_SLOTS; ++kk) {
+            const int j = j0 + 32 * kk + lane;
+            if (j > l && j < nb) acc[kk] = fma(til, gl[j], acc[kk]);
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < ROW_SLOTS; ++k) {
+        const int j = j0 + 32 * k + lane;
+        if (j < nb) ti[j] = j >= i ? tv[k] : T(0);
+      }
+      __syncwarp();  // the next group reads this one's T[i, l] back
     }
-    if (tid == 0 && j >= r0 && j < r1) a[j * lda + j] = safe ? beta : alpha;
-    if (tid == 0 && blk == 0) tau[j] = tj;
-    __syncthreads();
-    if (j + 1 < steps) {  // partial norm of column j+1 over rows >= j+1
-      T s = T(0);
-      for (int64_t r = max(r0, j + 1) + tid; r < r1; r += PANEL_THREADS)
-        s = fma(a[r * lda + j + 1], a[r * lda + j + 1], s);
-      s = block_sum(s, red);
-      if (tid == 0) pn[blk] = s;
-    }
-    grid.sync();
   }
 }
 
-// The workspace `ws` of one launch of G blocks holds, in this order, the
-// partials of w (G*nb), of the norm (G), of the Gram (G*P) and the Gram
-// itself (P), P = nb*(nb-1)/2 pairs; the wrapper sizes it.
-template <typename T>
-__global__ void __launch_bounds__(PANEL_THREADS)
-qr_panel_kernel(int64_t m, int64_t nb, T* a, int64_t lda, T* tau, T* t, T* ws) {
+// GEQR2 + LARFT (the note at the top says how).  RESIDENT: the block's rows
+// live in shared memory after qr_extras(nb) bytes.
+template <typename T, bool RESIDENT>
+__global__ void __launch_bounds__(QR_THREADS, 1)
+qr_panel_kernel(int64_t m, int64_t nb64, T* a, int64_t lda, T* tau, T* t, T* wsp) {
+  using I = std::conditional_t<RESIDENT, int, int64_t>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int64_t G = gridDim.x, P = nb * (nb - 1) / 2;
-  T* pw = ws;
-  T* pn = pw + G * nb;
-  T* pgram = pn + G;
-  T* gram = pgram + G * P;
-  geqr2_grid<T>(m, nb, a, lda, tau, pw, pn, smem_raw);
-  larft_grid<T, true>(m, nb, a, lda, tau, t, pgram, gram);
+  cg::grid_group grid = cg::this_grid();
+  const int G = gridDim.x, nb = static_cast<int>(nb64);
+  const int lane = threadIdx.x & 31, q = threadIdx.x >> 5;
+  int64_t chunk, r0, r1;
+  owned_rows(m, G, blockIdx.x, &chunk, &r0, &r1);
+  T* sv = reinterpret_cast<T*>(smem_raw);
+  T* rv = sv + nb;
+  T* wv = rv + nb;
+  T* red = wv + nb;
+  const Rows<T, I> A{RESIDENT ? red + QR_WARPS * nb : a + r0 * lda,
+                     RESIDENT ? static_cast<I>(nb) : static_cast<I>(lda), r0,
+                     static_cast<int>(r1 - r0)};
+  const Workspace<T> ws(wsp, nb, G);
+  if (RESIDENT) {
+    for (int rr = q; rr < A.n; rr += QR_WARPS)
+      for (int c = lane; c < nb; c += 32) A.at(rr, c) = a[(r0 + rr) * lda + c];
+    __syncthreads();
+  }
+  const int steps = static_cast<int>(min(m, nb64));
+  column_pass(A, nb, steps, -1, G, Reflector<T>{}, wv, red, ws.ps, ws.prow);
+  grid.sync();
+  for (int j = 0; j < steps; ++j) {
+    const Reflector<T> rf = reflector(nb, G, j, ws.ps, ws.prow, ws.pw, sv, rv);
+    if (blockIdx.x == 0 && threadIdx.x == 0) tau[j] = rf.tau;
+    grid.sync();
+    for (int i = j + 1 + threadIdx.x; i < nb; i += QR_THREADS) wv[i] = __ldcg(ws.pw + i);
+    __syncthreads();
+    column_pass(A, nb, steps, j, G, rf, wv, red, ws.ps, ws.prow);
+    if (j + 1 < steps) grid.sync();
+  }
+  if (blockIdx.x == 0)
+    for (int i = steps + threadIdx.x; i < nb; i += QR_THREADS) tau[i] = T(0);
+  __syncthreads();
+  gram_partial<T, true>(A, nb, ws.pgram);
+  if (RESIDENT)
+    for (int rr = q; rr < A.n; rr += QR_WARPS)
+      for (int c = lane; c < nb; c += 32) a[(r0 + rr) * lda + c] = A.at(rr, c);
+  __syncthreads();
+  larft_finish(nb, tau, t, ws, red + QR_WARPS * nb);
+}
+
+// LARFT alone.  The block's rows of V are loaded into shared memory first
+// where the launch gave room for them (the Gram reuses that room later);
+// either way the partial Gram takes the same terms in the same order.
+template <typename T>
+__global__ void __launch_bounds__(QR_THREADS, 1)
+larft_kernel(int64_t m, int64_t nb64, const T* v, int64_t ldv, const T* tau, T* t, T* wsp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int G = gridDim.x, nb = static_cast<int>(nb64);
+  const int lane = threadIdx.x & 31, q = threadIdx.x >> 5;
+  int64_t chunk, r0, r1;
+  owned_rows(m, G, blockIdx.x, &chunk, &r0, &r1);
+  const int n = static_cast<int>(r1 - r0);
+  const Workspace<T> ws(wsp, nb, G);
+  T* tail = reinterpret_cast<T*>(smem_raw) + (3 + QR_WARPS) * nb;  // after qr_extras(nb)
+  if (dynamic_smem_bytes() >= qr_extras<T>(nb) + static_cast<size_t>(n) * nb * sizeof(T)) {
+    for (int rr = q; rr < n; rr += QR_WARPS)
+      for (int c = lane; c < nb; c += 32) tail[rr * nb + c] = v[(r0 + rr) * ldv + c];
+    __syncthreads();
+    gram_partial<T, false>(Rows<T, int>{tail, nb, r0, n}, nb, ws.pgram);
+    __syncthreads();
+  } else {
+    gram_partial<T, false>(Rows<T, int64_t>{const_cast<T*>(v) + r0 * ldv, ldv, r0, n}, nb,
+                           ws.pgram);
+  }
+  larft_finish(nb, tau, t, ws, tail);
+}
+
+// How an m x nb panel runs: out = {blocks, resident (1) or streamed (0),
+// rows a block (chunk), dynamic shared memory bytes of the panel kernel and
+// of the larft kernel, workspace elements, threads a block, the widest nb
+// whose shared memory fits}.  The larft entry takes the same blocks and rows.
+template <typename T>
+static cudaError_t qr_plan(int64_t m, int64_t nb, int64_t* out) {
+  if (m <= 0 || nb <= 0) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, coop = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const size_t limit = static_cast<size_t>(optin), extras = qr_extras<T>(nb);
+  out[7] = static_cast<int64_t>(limit / qr_extras<T>(1));  // widest panel
+  if (extras > limit) return cudaErrorInvalidValue;
+  const int64_t cap = sms < QR_MAX_BLOCKS ? sms : QR_MAX_BLOCKS;
+  int64_t g = (m + QR_MIN_ROWS - 1) / QR_MIN_ROWS;
+  g = g < cap ? g : cap;
+  const int64_t chunk = (m + g - 1) / g;
+  // the Gram in shared memory for the recurrence where it fits, and the
+  // larft kernel's rows of V where they fit too
+  const size_t recur = qr_recurrence_smem<T>(nb) <= limit ? qr_recurrence_smem<T>(nb) : extras;
+  const size_t whole = extras + static_cast<size_t>(chunk * nb) * sizeof(T);
+  const size_t larft = whole > recur && whole <= limit ? whole : recur;
+  int per_sm = 0;
+  size_t smem = whole > recur ? whole : recur;
+  bool resident = whole <= limit;
+  if (resident) {
+    err = allow_smem(qr_panel_kernel<T, true>, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, qr_panel_kernel<T, true>,
+                                                          QR_THREADS, smem);
+    if (err != cudaSuccess) return err;
+    resident = per_sm >= 1;
+  }
+  if (!resident) {
+    smem = recur;
+    err = allow_smem(qr_panel_kernel<T, false>, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, qr_panel_kernel<T, false>,
+                                                          QR_THREADS, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  }
+  out[0] = g;
+  out[1] = resident ? 1 : 0;
+  out[2] = chunk;
+  out[3] = static_cast<int64_t>(smem);
+  out[4] = static_cast<int64_t>(larft);
+  out[5] = Workspace<T>::elems(nb, g);
+  out[6] = QR_THREADS;
+  return cudaSuccess;
+}
+
+template <typename Kernel>
+static cudaError_t launch_qr_grid(Kernel kernel, int grid, size_t smem, void** args,
+                                  cudaStream_t stream) {
+  if (grid < 1 || grid > QR_MAX_BLOCKS) return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
+                                    dim3(QR_THREADS), args, smem, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 template <typename T>
-__global__ void __launch_bounds__(PANEL_THREADS)
-larft_kernel(int64_t m, int64_t nb, const T* v, int64_t ldv, const T* tau, T* t, T* ws) {
-  const int64_t G = gridDim.x, P = nb * (nb - 1) / 2;
-  T* pgram = ws + G * nb + G;
-  larft_grid<T, false>(m, nb, v, ldv, tau, t, pgram, pgram + G * P);
-}
-
-template <typename T>
-static cudaError_t launch_qr(int64_t m, int64_t nb, void* a, int64_t lda, void* tau,
-                             void* t, int grid, void* ws, cudaStream_t stream) {
+static cudaError_t launch_qr(int64_t m, int64_t nb, void* a, int64_t lda, void* tau, void* t,
+                             int grid, int resident, int64_t smem, void* ws,
+                             cudaStream_t stream) {
   if (m <= 0 || nb <= 0) return cudaSuccess;
   T* ap = static_cast<T*>(a);
   T* tp = static_cast<T*>(tau);
   T* tt = static_cast<T*>(t);
   T* wp = static_cast<T*>(ws);
   void* args[] = {&m, &nb, &ap, &lda, &tp, &tt, &wp};
-  return launch_cooperative(qr_panel_kernel<T>, grid, qr_smem<T>(nb), args, stream);
+  return resident ? launch_qr_grid(qr_panel_kernel<T, true>, grid, smem, args, stream)
+                  : launch_qr_grid(qr_panel_kernel<T, false>, grid, smem, args, stream);
 }
 
 template <typename T>
 static cudaError_t launch_larft(int64_t m, int64_t nb, const void* v, int64_t ldv,
-                                const void* tau, void* t, int grid, void* ws,
+                                const void* tau, void* t, int grid, int64_t smem, void* ws,
                                 cudaStream_t stream) {
   if (m <= 0 || nb <= 0) return cudaSuccess;
   const T* vp = static_cast<const T*>(v);
@@ -237,41 +607,41 @@ static cudaError_t launch_larft(int64_t m, int64_t nb, const void* v, int64_t ld
   T* tt = static_cast<T*>(t);
   T* wp = static_cast<T*>(ws);
   void* args[] = {&m, &nb, &vp, &ldv, &tp, &tt, &wp};
-  return launch_cooperative(larft_kernel<T>, grid, 0, args, stream);
+  return launch_qr_grid(larft_kernel<T>, grid, smem, args, stream);
 }
 
-extern "C" int repro_qr_panel_grid_f32(int64_t m, int64_t nb, int* grid) {
-  return cooperative_grid(qr_panel_kernel<float>, qr_smem<float>(nb), m, grid);
+extern "C" int repro_qr_panel_plan_f32(int64_t m, int64_t nb, int64_t* out) {
+  return qr_plan<float>(m, nb, out);
 }
 
-extern "C" int repro_qr_panel_grid_f64(int64_t m, int64_t nb, int* grid) {
-  return cooperative_grid(qr_panel_kernel<double>, qr_smem<double>(nb), m, grid);
-}
-
-extern "C" int repro_larft_grid_f32(int64_t m, int64_t nb, int* grid) {
-  return cooperative_grid(larft_kernel<float>, 0, m, grid);
-}
-
-extern "C" int repro_larft_grid_f64(int64_t m, int64_t nb, int* grid) {
-  return cooperative_grid(larft_kernel<double>, 0, m, grid);
+extern "C" int repro_qr_panel_plan_f64(int64_t m, int64_t nb, int64_t* out) {
+  return qr_plan<double>(m, nb, out);
 }
 
 extern "C" int repro_qr_panel_f32(int64_t m, int64_t nb, void* a, int64_t lda, void* tau,
-                                  void* t, int grid, void* ws, void* stream) {
-  return launch_qr<float>(m, nb, a, lda, tau, t, grid, ws, static_cast<cudaStream_t>(stream));
+                                  void* t, int grid, int resident, int64_t smem, void* ws,
+                                  void* stream) {
+  return launch_qr<float>(m, nb, a, lda, tau, t, grid, resident, smem, ws,
+                          static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_qr_panel_f64(int64_t m, int64_t nb, void* a, int64_t lda, void* tau,
-                                  void* t, int grid, void* ws, void* stream) {
-  return launch_qr<double>(m, nb, a, lda, tau, t, grid, ws, static_cast<cudaStream_t>(stream));
+                                  void* t, int grid, int resident, int64_t smem, void* ws,
+                                  void* stream) {
+  return launch_qr<double>(m, nb, a, lda, tau, t, grid, resident, smem, ws,
+                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_larft_f32(int64_t m, int64_t nb, const void* v, int64_t ldv,
-                               const void* tau, void* t, int grid, void* ws, void* stream) {
-  return launch_larft<float>(m, nb, v, ldv, tau, t, grid, ws, static_cast<cudaStream_t>(stream));
+                               const void* tau, void* t, int grid, int64_t smem, void* ws,
+                               void* stream) {
+  return launch_larft<float>(m, nb, v, ldv, tau, t, grid, smem, ws,
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int repro_larft_f64(int64_t m, int64_t nb, const void* v, int64_t ldv,
-                               const void* tau, void* t, int grid, void* ws, void* stream) {
-  return launch_larft<double>(m, nb, v, ldv, tau, t, grid, ws, static_cast<cudaStream_t>(stream));
+                               const void* tau, void* t, int grid, int64_t smem, void* ws,
+                               void* stream) {
+  return launch_larft<double>(m, nb, v, ldv, tau, t, grid, smem, ws,
+                              static_cast<cudaStream_t>(stream));
 }

@@ -1,5 +1,5 @@
 // Triangular solves for Hopper (sm_90a): left TRSM, right transposed TRSM
-// and the fused small LU solve.
+// and the fused small LU solve, all on one strip kernel.
 //
 // Replaces the TPU kernels repro/kernels/trsm.py::trsm_left_lower (L*X = B,
 // unit or not) -- here with an upper mode too, for the back sweep that the
@@ -14,7 +14,8 @@
 // for a lower and descending j for an upper triangle, then div_rn by T[i, i]
 // unless the diagonal is unit.  trsm_chain_kernel runs it as written, one
 // thread a right-hand side.  It is on no path: the tests and chip_smoke.py
-// hold trsm_strip_kernel bitwise to it.  lu_solve_kernel runs it too.
+// hold trsm_strip_kernel bitwise to it, the small LU solve to two chain
+// launches (unit lower, then upper).
 //
 // What bounds the solve on an H100: at b = 128 it does b*b flops per
 // right-hand side against 2*b*8 bytes of it in f64 -- 8 flop/byte, bytes
@@ -55,6 +56,11 @@
 //     strip k+1's rows took their terms) was measured and did not pay: an
 //     update's time is each thread's chain of loads and R dependent FMAs,
 //     which strip k+1's rows alone take as long as all rows.
+//   * The kernel is a template on its walks (Walk: direction and diagonal).
+//     A TRSM runs one.  The small LU solve runs two on the same x tile: the
+//     unit-lower strips top-down, then the upper strips bottom-up, as one
+//     sequence of steps, so the first upper strip stages while the last
+//     lower one is used; the tile is loaded once and X written once.
 //   * f64 on DFMA and f32 on FFMA through explicit fma(); nothing is left
 //     for the compiler to contract.
 //
@@ -65,13 +71,17 @@
 // Moving the accumulator between registers and shared memory is exact and
 // negating T is exact.  Each column of X depends only on T and its own
 // column of B, never on NC, the strip or which columns share a block, so the
-// kernel is column-decomposable as the look-ahead schedules need.
+// kernel is column-decomposable as the look-ahead schedules need.  The LU
+// solve's second walk starts from the first walk's x exactly as a second
+// launch would start from its output, so it is bitwise the two chains.
+#include <type_traits>
+
 #include "dense.cuh"
 
 constexpr int64_t MAX_B = 256;
 
 // ---------------------------------------------------------------------------
-// The contract, one thread a right-hand side (also the small LU solve).
+// The contract, one thread a right-hand side.
 // ---------------------------------------------------------------------------
 constexpr int CHAIN_NC = 32;  // right-hand sides per block
 
@@ -91,20 +101,6 @@ trsm_chain_kernel(int64_t b, int64_t n, const T* __restrict__ t, int64_t ldt,
     if (RIGHT) X[rhs * ldx + i] = x[i * CHAIN_NC];
     else X[i * ldx + rhs] = x[i * CHAIN_NC];
   }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(CHAIN_NC)
-lu_solve_kernel(int64_t n, int64_t nrhs, const T* __restrict__ lu, int64_t ldl,
-                const T* B, int64_t ldb, T* X, int64_t ldx) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* x = reinterpret_cast<T*>(smem_raw) + threadIdx.x;
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * CHAIN_NC + threadIdx.x;
-  if (col >= nrhs) return;
-  for (int64_t i = 0; i < n; ++i) x[i * CHAIN_NC] = B[i * ldb + col];
-  solve_vector<T, true, true>(n, lu, ldl, x, CHAIN_NC);    // L*y = b (unit lower)
-  solve_vector<T, false, false>(n, lu, ldl, x, CHAIN_NC);  // U*x = y
-  for (int64_t i = 0; i < n; ++i) X[i * ldx + col] = x[i * CHAIN_NC];
 }
 
 template <typename Kernel, typename... Args>
@@ -268,15 +264,65 @@ __device__ __forceinline__ void update_rows(T* xs, const T* ts, Strip st, int u0
   }
 }
 
+// A walk of the triangle: top-down over a lower or bottom-up over an upper
+// one, with a unit diagonal or not.
+template <bool LOWER_, bool UNIT_>
+struct Walk {
+  static constexpr bool LOWER = LOWER_, UNIT = UNIT_;
+};
+
+// Strip k of a walk over a b-row triangle: strip k (lower) or S-1-k (upper)
+// of the S strips [s*R, min(b, s*R + R)).
+template <bool LOWER>
+__device__ __forceinline__ Strip strip_of(int b, int k) {
+  const int S = (b + R - 1) / R;
+  const int lo = (LOWER ? k : S - 1 - k) * R, w = min(b, lo + R) - lo;
+  return Strip{lo, w, LOWER ? lo : 0};
+}
+
+template <typename T, int RS, bool VEC, class W>
+__device__ __forceinline__ void stage_strip(T* buf, const T* __restrict__ t, int64_t ldt,
+                                            int b, int k) {
+  const Strip st = strip_of<W::LOWER>(b, k);
+  load_strip<T, RS, VEC>(buf, t, ldt, st.r0, W::LOWER ? b : st.lo + st.w, st.lo, st.w);
+  cp_async_commit();
+}
+
+template <typename T, class W, int NC, int NCP, int RS>
+__device__ __forceinline__ void solve_strip(T* xs, const T* ts, int b, int k, int tid) {
+  const Strip st = strip_of<W::LOWER>(b, k);
+  if (tid < NC) diag_solve<T, W::LOWER, W::UNIT, NCP, RS>(xs, ts, st, tid);
+  __syncthreads();
+  update_rows<T, W::LOWER, NCP, RS>(xs, ts, st, W::LOWER ? st.lo + st.w : 0,
+                                    W::LOWER ? b : st.lo, tid % NC, tid / NC, THREADS / NC);
+}
+
+// Step k of the walks W0 then W1 (W1 void: W0 alone), S strips each.
+template <typename T, int RS, bool VEC, class W0, class W1>
+__device__ __forceinline__ void stage_step(T* buf, const T* __restrict__ t, int64_t ldt, int b,
+                                           int S, int k) {
+  if constexpr (std::is_void<W1>::value) stage_strip<T, RS, VEC, W0>(buf, t, ldt, b, k);
+  else if (k < S) stage_strip<T, RS, VEC, W0>(buf, t, ldt, b, k);
+  else stage_strip<T, RS, VEC, W1>(buf, t, ldt, b, k - S);
+}
+
+template <typename T, int NC, int NCP, int RS, class W0, class W1>
+__device__ __forceinline__ void solve_step(T* xs, const T* ts, int b, int S, int k, int tid) {
+  if constexpr (std::is_void<W1>::value) solve_strip<T, W0, NC, NCP, RS>(xs, ts, b, k, tid);
+  else if (k < S) solve_strip<T, W0, NC, NCP, RS>(xs, ts, b, k, tid);
+  else solve_strip<T, W1, NC, NCP, RS>(xs, ts, b, k - S, tid);
+}
+
 // Solve NC right-hand sides (columns c0.. of B, or rows c0.. of B when
-// RIGHT) against the b x b triangle t.  VEC: t and (left) B have 16-byte
-// aligned rows.
-template <typename T, bool LOWER, bool UNIT, bool RIGHT, int NC, bool VEC>
+// RIGHT) against the b x b triangle t: the walk W0, then W1 unless it is
+// void.  VEC: t and (left) B have 16-byte aligned rows.
+template <typename T, bool RIGHT, int NC, bool VEC, class W0, class W1>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 trsm_strip_kernel(int b, int64_t n, const T* __restrict__ t, int64_t ldt, const T* B,
                   int64_t ldb, T* X, int64_t ldx) {
   using L = Layout<T, NC, RIGHT>;
   constexpr int NCP = L::NCP, RS = L::RS, V = V16<T>;
+  constexpr int WALKS = std::is_void<W1>::value ? 1 : 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ts0 = reinterpret_cast<T*>(smem_raw);
   T* xs = ts0 + 2 * L::strip(b);
@@ -310,31 +356,16 @@ trsm_strip_kernel(int b, int64_t n, const T* __restrict__ t, int64_t ldt, const 
     }
   }
 
-  // Strip s covers rows [s*R, min(b, s*R + R)); step k takes strip k
-  // (lower) or strip S-1-k (upper), held in buffer k % 2 while strip k+1
+  // Step k of the WALKS * S strips is held in buffer k % 2 while step k+1
   // loads into the other.
-  const int S = (b + R - 1) / R;
-  auto strip = [&](int k) {
-    const int lo = (LOWER ? k : S - 1 - k) * R, w = min(b, lo + R) - lo;
-    return Strip{lo, w, LOWER ? lo : 0};
-  };
+  const int S = (b + R - 1) / R, steps = WALKS * S;
   auto buffer = [&](int k) { return ts0 + (k & 1) * L::strip(b); };
-  auto stage = [&](int k) {
-    const Strip st = strip(k);
-    load_strip<T, RS, VEC>(buffer(k), t, ldt, st.r0, LOWER ? b : st.lo + st.w, st.lo, st.w);
-    cp_async_commit();
-  };
-  stage(0);  // with the tile
-  for (int k = 0; k < S; ++k) {
+  stage_step<T, RS, VEC, W0, W1>(buffer(0), t, ldt, b, S, 0);  // with the tile
+  for (int k = 0; k < steps; ++k) {
     cp_async_wait<0>();
-    __syncthreads();  // strip k landed; the other buffer's last reader is done
-    if (k + 1 < S) stage(k + 1);
-    const Strip st = strip(k);
-    const T* ts = buffer(k);
-    if (tid < NC) diag_solve<T, LOWER, UNIT, NCP, RS>(xs, ts, st, tid);
-    __syncthreads();
-    update_rows<T, LOWER, NCP, RS>(xs, ts, st, LOWER ? st.lo + st.w : 0, LOWER ? b : st.lo,
-                                   tid % NC, tid / NC, THREADS / NC);
+    __syncthreads();  // step k landed; the other buffer's last reader is done
+    if (k + 1 < steps) stage_step<T, RS, VEC, W0, W1>(buffer(k + 1), t, ldt, b, S, k + 1);
+    solve_step<T, NC, NCP, RS, W0, W1>(xs, buffer(k), b, S, k, tid);
   }
   __syncthreads();
 
@@ -382,17 +413,17 @@ static Plan make_plan(int64_t b, int64_t n) {
 // One instantiation's launch; its shared-memory limit is raised once, to
 // what b = MAX_B needs (a host call per launch would cost as much as a
 // narrow solve).
-template <typename T, bool LOWER, bool UNIT, bool RIGHT, int NC, bool VEC>
+template <typename T, bool RIGHT, int NC, bool VEC, class W0, class W1>
 static cudaError_t launch_strip(const Plan& p, int64_t b, int64_t n, const T* t, int64_t ldt,
                                 const T* B, int64_t ldb, T* X, int64_t ldx, cudaStream_t s) {
-  auto kernel = trsm_strip_kernel<T, LOWER, UNIT, RIGHT, NC, VEC>;
+  auto kernel = trsm_strip_kernel<T, RIGHT, NC, VEC, W0, W1>;
   static const cudaError_t raised = allow_smem(kernel, Layout<T, NC, RIGHT>::bytes(MAX_B));
   if (raised != cudaSuccess) return raised;
   kernel<<<p.blocks, THREADS, p.smem, s>>>(static_cast<int>(b), n, t, ldt, B, ldb, X, ldx);
   return cudaGetLastError();
 }
 
-template <typename T, bool LOWER, bool UNIT, bool RIGHT>
+template <typename T, bool RIGHT, class W0, class W1 = void>
 static cudaError_t run_strip(int64_t b, int64_t n, const void* t, int64_t ldt, const void* B,
                              int64_t ldb, void* X, int64_t ldx, cudaStream_t s) {
   if (b <= 0 || n <= 0) return cudaSuccess;
@@ -403,20 +434,20 @@ static cudaError_t run_strip(int64_t b, int64_t n, const void* t, int64_t ldt, c
   const Plan p = make_plan<T, RIGHT>(b, n);
   const bool vec = aligned16(t, ldt, sizeof(T)) && (RIGHT || aligned16(B, ldb, sizeof(T)));
   if (p.nc == NC_WIDE)
-    return vec ? launch_strip<T, LOWER, UNIT, RIGHT, NC_WIDE, true>(p, b, n, tp, ldt, bp, ldb, xp, ldx, s)
-               : launch_strip<T, LOWER, UNIT, RIGHT, NC_WIDE, false>(p, b, n, tp, ldt, bp, ldb, xp, ldx, s);
-  return vec ? launch_strip<T, LOWER, UNIT, RIGHT, NC_NARROW, true>(p, b, n, tp, ldt, bp, ldb, xp, ldx, s)
-             : launch_strip<T, LOWER, UNIT, RIGHT, NC_NARROW, false>(p, b, n, tp, ldt, bp, ldb, xp, ldx, s);
+    return vec ? launch_strip<T, RIGHT, NC_WIDE, true, W0, W1>(p, b, n, tp, ldt, bp, ldb, xp, ldx, s)
+               : launch_strip<T, RIGHT, NC_WIDE, false, W0, W1>(p, b, n, tp, ldt, bp, ldb, xp, ldx, s);
+  return vec ? launch_strip<T, RIGHT, NC_NARROW, true, W0, W1>(p, b, n, tp, ldt, bp, ldb, xp, ldx, s)
+             : launch_strip<T, RIGHT, NC_NARROW, false, W0, W1>(p, b, n, tp, ldt, bp, ldb, xp, ldx, s);
 }
 
 template <typename T>
 static cudaError_t launch_trsm(int64_t b, int64_t n, int lower, int unit, const void* t,
                                int64_t ldt, const void* B, int64_t ldb, void* X, int64_t ldx,
                                cudaStream_t s) {
-  if (lower && unit) return run_strip<T, true, true, false>(b, n, t, ldt, B, ldb, X, ldx, s);
-  if (lower) return run_strip<T, true, false, false>(b, n, t, ldt, B, ldb, X, ldx, s);
-  if (unit) return run_strip<T, false, true, false>(b, n, t, ldt, B, ldb, X, ldx, s);
-  return run_strip<T, false, false, false>(b, n, t, ldt, B, ldb, X, ldx, s);
+  if (lower && unit) return run_strip<T, false, Walk<true, true>>(b, n, t, ldt, B, ldb, X, ldx, s);
+  if (lower) return run_strip<T, false, Walk<true, false>>(b, n, t, ldt, B, ldb, X, ldx, s);
+  if (unit) return run_strip<T, false, Walk<false, true>>(b, n, t, ldt, B, ldb, X, ldx, s);
+  return run_strip<T, false, Walk<false, false>>(b, n, t, ldt, B, ldb, X, ldx, s);
 }
 
 // X*L^T = B for B with m rows: m right-hand sides of length b.
@@ -424,8 +455,8 @@ template <typename T>
 static cudaError_t launch_trsm_right(int64_t b, int64_t m, int unit, const void* t, int64_t ldt,
                                      const void* B, int64_t ldb, void* X, int64_t ldx,
                                      cudaStream_t s) {
-  if (unit) return run_strip<T, true, true, true>(b, m, t, ldt, B, ldb, X, ldx, s);
-  return run_strip<T, true, false, true>(b, m, t, ldt, B, ldb, X, ldx, s);
+  if (unit) return run_strip<T, true, Walk<true, true>>(b, m, t, ldt, B, ldb, X, ldx, s);
+  return run_strip<T, true, Walk<true, false>>(b, m, t, ldt, B, ldb, X, ldx, s);
 }
 
 template <typename T>
@@ -450,13 +481,13 @@ static cudaError_t launch_chain(int64_t b, int64_t n, int lower, int unit, int r
   return launch_columns(trsm_chain_kernel<T, false, false, false>, b, n, e, s, b, n, tp, ldt, bp, ldb, xp, ldx);
 }
 
+// L*U*X = B from the packed LU: the unit-lower walk, then the upper one.
 template <typename T>
 static cudaError_t launch_lu_solve(int64_t n, int64_t nrhs, const void* lu,
                                    int64_t ldl, const void* B, int64_t ldb,
                                    void* X, int64_t ldx, cudaStream_t s) {
-  return launch_columns(lu_solve_kernel<T>, n, nrhs, sizeof(T), s, n, nrhs,
-                        static_cast<const T*>(lu), ldl, static_cast<const T*>(B),
-                        ldb, static_cast<T*>(X), ldx);
+  return run_strip<T, false, Walk<true, true>, Walk<false, false>>(n, nrhs, lu, ldl, B, ldb, X,
+                                                                    ldx, s);
 }
 
 extern "C" int repro_trsm_f32(int64_t b, int64_t n, int lower, int unit,

@@ -3,56 +3,98 @@
 Kernel: ``csrc/panel_qr.cu`` (CUDA C++ for sm_90a), replacing the TPU
 kernel ``repro/kernels/panel_qr.py::qr_panel``.  The source note there says
 what bounds it on an H100 and how its design answers that: a cooperative
-grid over the panel's rows, two grid-wide barriers per column, every
+grid of at most one block an SM over the panel's rows, each block's rows
+kept in shared memory where they fit (the ``resident`` route, else
+``streamed`` from device memory), two grid-wide barriers a column, every
 cross-block sum taken over per-block partials in a fixed order (no
 atomics), so a panel gives the same bits on every run.
 
 * :func:`qr_panel` ``(panel) -> (panel, tau, T)`` factors an ``m × nb``
-  view (unit stride in its last dimension) **in place** into R and the
+  view (unit stride in its last dimension; on the GPU, nb up to what a
+  block's shared memory holds 19·nb elements of: 1529 in f64 and 3058 in
+  f32 on an H100, a ValueError beyond) **in place** into R and the
   reflectors below the diagonal, and returns ``tau`` (length ``nb``, zero
   beyond ``min(m, nb)``) and the compact-WY ``T`` (``nb × nb``).
 * :func:`larft` ``(v, tau) -> T`` runs only the LARFT part of the same
-  source on an explicit V; it is part of the same TPU kernel (whose body
-  computes T), with a launch count of its own.
+  source on an explicit V, over the same blocks and rows as the panel of
+  that shape, so its T is bitwise the panel's for the same V; it is part
+  of the same TPU kernel (whose body computes T), with a launch count of
+  its own.
+* :func:`plan` shows the route, the blocks, the rows a block and the
+  longest chain of terms one output element sums in turn (the ``k`` of the
+  bound below).
 
 The plain PyTorch versions are :func:`repro_torch.core.qr.qr_panel_plain`
 (``qr_unblocked`` + ``larft_plain``; the reference's kernel body is
 ``qr_unblocked`` + ``build_t_matrix``) and ``larft_plain``.  The kernel
 and the plain version sum their reductions in different groupings, so
-they agree to a relative bound, not bitwise.  On CPU tensors the wrappers run the plain
-versions; on CUDA tensors they launch the kernel or raise.
+they agree to a relative bound (4·k·eps, k from :func:`plan`), not
+bitwise.  On CPU tensors the wrappers run the plain versions; on CUDA
+tensors they launch the kernel or raise.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional
 
 import torch
 
 from repro_torch.core.qr import larft_plain, qr_panel_plain
 from repro_torch.kernels import _build
 
-__all__ = ["qr_panel", "qr_panel_plain", "larft", "larft_plain"]
+__all__ = ["qr_panel", "qr_panel_plain", "larft", "larft_plain", "plan"]
 
 _LIB = "panel_qr"
-_GRID_ARGS = [_build.c_i64, _build.c_i64, ctypes.POINTER(ctypes.c_int)]
+_PLAN_ARGS = [_build.c_i64, _build.c_i64, ctypes.POINTER(_build.c_i64)]
 _ARGS = [_build.c_i64, _build.c_i64, _build.c_ptr, _build.c_i64,
-         _build.c_ptr, _build.c_ptr, ctypes.c_int, _build.c_ptr,
-         _build.c_ptr]
+         _build.c_ptr, _build.c_ptr, ctypes.c_int, ctypes.c_int,
+         _build.c_i64, _build.c_ptr, _build.c_ptr]
+_LARFT_ARGS = [_build.c_i64, _build.c_i64, _build.c_ptr, _build.c_i64,
+               _build.c_ptr, _build.c_ptr, ctypes.c_int, _build.c_i64,
+               _build.c_ptr, _build.c_ptr]
+_WARPS = 16   # warps a block (``csrc/panel_qr.cu``), for the chain count
 
 
-def _grid(symbol: str, m: int, nb: int) -> int:
-    grid = ctypes.c_int(0)
-    err = _build.function(_LIB, symbol, _GRID_ARGS)(m, nb, ctypes.byref(grid))
-    _build.check_launch(_LIB, err, f"{symbol} grid query")
-    return grid.value
+def _chain(grid: int, chunk: int, nb: int) -> int:
+    """Longest chain of terms one output element sums in turn: a Gram entry
+    sums the block's ``chunk`` rows, then a lane ``⌈G/32⌉`` block partials
+    and five shuffle steps, then a T entry up to ``nb − 1`` recurrence
+    terms; GEQR2's sums (a warp's rows, the warps, the blocks, then the
+    reflector's two operations) are shorter."""
+    cross = -(-grid // 32) + 5
+    return max(-(-chunk // _WARPS) + _WARPS + cross + 2, chunk + cross + nb - 1)
 
 
-def _workspace(nb: int, g: int, dtype, device) -> torch.Tensor:
-    """Partials of w (g·nb) and of the norm (g), of the Gram (g·P) and the
-    Gram (P), P = nb·(nb − 1)/2 — the layout ``csrc/panel_qr.cu`` reads."""
-    pairs = nb * (nb - 1) // 2
-    return torch.empty(g * nb + g + g * pairs + pairs, dtype=dtype,
-                       device=device)
+@functools.lru_cache(maxsize=None)
+def _plan(m: int, nb: int, dtype: torch.dtype, index: int) -> dict:
+    out = (_build.c_i64 * 8)()
+    fn = _build.function(_LIB, f"repro_qr_panel_plan_{_build.SUFFIX[dtype]}",
+                         _PLAN_ARGS)
+    with torch.cuda.device(index):
+        err = fn(m, nb, out)
+    if err and 0 < out[7] < nb:
+        raise ValueError(f"panel_qr: the kernel takes at most {out[7]} "
+                         f"columns of {dtype} on this card (its shared "
+                         f"memory), got {nb}")
+    _build.check_launch(_LIB, err, f"qr_panel plan for {m} x {nb}")
+    return {"route": "resident" if out[1] else "streamed", "grid": out[0],
+            "chunk": out[2], "smem_bytes": out[3], "larft_smem_bytes": out[4],
+            "workspace": out[5], "threads": out[6],
+            "chain": _chain(out[0], out[2], nb)}
+
+
+def plan(m: int, nb: int, dtype: torch.dtype, *,
+         device: Optional[torch.device] = None) -> dict:
+    """How an ``m × nb`` panel runs on a CUDA device: ``route``
+    (``resident`` or ``streamed``), ``grid`` blocks of ``threads``, rows a
+    block (``chunk``), dynamic shared memory a block of the panel and of the
+    larft kernel, workspace elements, and ``chain``, the k of the 4·k·eps
+    bound.  Builds the library; cached per shape."""
+    device = torch.device(device or "cuda")
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return dict(_plan(m, nb, dtype, index))
 
 
 def qr_panel(panel: torch.Tensor):
@@ -63,17 +105,20 @@ def qr_panel(panel: torch.Tensor):
     if device.type == "cpu":
         return qr_panel_plain(panel)
     m, nb = panel.shape
-    tau = torch.zeros(nb, dtype=dtype, device=device)
-    t = torch.zeros((nb, nb), dtype=dtype, device=device)
     if m == 0 or nb == 0:
-        return panel, tau, t
-    sfx = _build.SUFFIX[dtype]
+        return (panel, torch.zeros(nb, dtype=dtype, device=device),
+                torch.zeros((nb, nb), dtype=dtype, device=device))
+    # the kernel writes all of tau and T
+    tau = torch.empty(nb, dtype=dtype, device=device)
+    t = torch.empty((nb, nb), dtype=dtype, device=device)
+    p = _plan(m, nb, dtype, device.index)
+    ws = torch.empty(p["workspace"], dtype=dtype, device=device)
     with _build.device_guard(device):
-        g = _grid(f"repro_qr_panel_grid_{sfx}", m, nb)
-        ws = _workspace(nb, g, dtype, device)
-        err = _build.function(_LIB, f"repro_qr_panel_{sfx}", _ARGS)(
+        err = _build.function(_LIB, f"repro_qr_panel_{_build.SUFFIX[dtype]}",
+                              _ARGS)(
             m, nb, _build.ptr(panel), _build.ld(panel), _build.ptr(tau),
-            _build.ptr(t), g, _build.ptr(ws), _build.stream_of(device))
+            _build.ptr(t), p["grid"], int(p["route"] == "resident"),
+            p["smem_bytes"], _build.ptr(ws), _build.stream_of(device))
     _build.check_launch(_LIB, err, "qr_panel kernel launch")
     qr_panel.launches += 1
     return panel, tau, t
@@ -94,17 +139,18 @@ def larft(v: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
     if device.type == "cpu":
         return larft_plain(v, tau)
     m = v.shape[0]
-    t = torch.zeros((nb, nb), dtype=dtype, device=device)
     if m == 0 or nb == 0:
-        return t
+        return torch.zeros((nb, nb), dtype=dtype, device=device)
+    t = torch.empty((nb, nb), dtype=dtype, device=device)  # written whole
     tau = tau.contiguous()
-    sfx = _build.SUFFIX[dtype]
+    p = _plan(m, nb, dtype, device.index)
+    ws = torch.empty(p["workspace"], dtype=dtype, device=device)
     with _build.device_guard(device):
-        g = _grid(f"repro_larft_grid_{sfx}", m, nb)
-        ws = _workspace(nb, g, dtype, device)
-        err = _build.function(_LIB, f"repro_larft_{sfx}", _ARGS)(
+        err = _build.function(_LIB, f"repro_larft_{_build.SUFFIX[dtype]}",
+                              _LARFT_ARGS)(
             m, nb, _build.ptr(v), _build.ld(v), _build.ptr(tau),
-            _build.ptr(t), g, _build.ptr(ws), _build.stream_of(device))
+            _build.ptr(t), p["grid"], p["larft_smem_bytes"], _build.ptr(ws),
+            _build.stream_of(device))
     _build.check_launch(_LIB, err, "larft kernel launch")
     larft.launches += 1
     return t

@@ -1,6 +1,7 @@
 """Triangular solves (left, right transposed) and the fused small LU solve.
 
-Kernels: ``csrc/trsm.cu`` (CUDA C++ for sm_90a).
+Kernels: ``csrc/trsm.cu`` (CUDA C++ for sm_90a), one strip kernel for all
+three.
 
 * :func:`trsm` replaces the TPU kernel
   ``repro/kernels/trsm.py::trsm_left_lower`` (``L·X = B``, unit or not) and
@@ -13,32 +14,36 @@ Kernels: ``csrc/trsm.cu`` (CUDA C++ for sm_90a).
   memory, so both modes run one kernel.
 * :func:`lu_solve_small` replaces ``repro/kernels/trsm.py::lu_solve_small``:
   forward unit-lower then backward upper substitution on a packed LU
-  (n ≤ 256) in one launch.
+  (n ≤ 256) in one launch.  The strip kernel walks the unit-lower strips
+  top-down, then the upper strips bottom-up, on one x tile in shared
+  memory: B read once, X written once.
 
 What bounds them on an H100 is latency: every element of X is a chain of
 up to b dependent FMAs, while the bytes (B read, X written once) take
-about 5 µs at 128 × 8064 in f64.  The TRSM kernel therefore works in
-strips (the note in ``trsm.cu`` gives the details): a block owns a tile
-of NC right-hand sides and all b rows of them in shared memory, walks the
+about 5 µs at 128 × 8064 in f64.  The kernel therefore works in strips
+(the note in ``trsm.cu`` gives the details): a block owns a tile of NC
+right-hand sides and all b rows of them in shared memory, walks the
 triangle in strips of R rows (top-down for lower, bottom-up for upper),
 solves each strip's R × R diagonal block one thread a right-hand side,
 then applies the strip to the rows not yet solved with every thread.
 :func:`plan` shows the tile, the strip, the threads and the shared memory
-chosen for a shape.
+chosen for a shape (the small LU solve takes the left solve's plan).
 
 The rounding contract is ``solve_vector`` (``csrc/dense.cuh``): each
 element starts from B, takes ``fma(-T[i, j], x[j], acc)`` in ascending j
 (lower) or descending j (upper), then one division unless the diagonal is
 unit.  The strips keep that order term for term, so the kernel equals
 :func:`trsm_chain`, the contract run one thread a right-hand side,
-bitwise; that kernel is a check on no path.  Every column of X so depends
-only on T and its own column of B (decomposable, like the GEMM), and the
-fused panel updates, which run ``solve_vector`` themselves, stay bitwise
-equal to the composed kernels.  The plain PyTorch versions sweep the
-columns of the triangle (``x[j] /= T[j, j]``, then
+bitwise, and :func:`lu_solve_small` equals the unit-lower chain followed by
+the upper one; that kernel is a check on no path.  Every column of X so
+depends only on T and its own column of B (decomposable, like the GEMM),
+and the fused panel updates, which run ``solve_vector`` themselves, stay
+bitwise equal to the composed kernels.  The plain PyTorch versions sweep
+the columns of the triangle (``x[j] /= T[j, j]``, then
 ``x[rows] -= T[rows, j]·x[j]``), which subtracts from each row in the same
-order; they differ from the kernel only by its FMA rounding.  Both compute
-at the input dtype (the reference's TPU kernel casts to f32).
+order; they differ from the kernel only by its FMA rounding, and
+:func:`lu_solve_small_plain` is :func:`trsm_plain`'s two sweeps.  Both
+compute at the input dtype (the reference's TPU kernel casts to f32).
 """
 from __future__ import annotations
 

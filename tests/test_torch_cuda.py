@@ -5,9 +5,11 @@ Phase 3 of ``chip_smoke.py`` at small shapes: every kernel is built from
 card.  The kernel and its plain version sum the same terms in the same
 order, so they are held to 4·max(k,8)·eps relative, k being the number of
 terms summed per element (the panel bitwise; the fused panel updates
-bitwise against the kernels they replace; the QR and QRCP panels, whose
+bitwise against the kernels they replace; the TRSMs and the small LU
+solve bitwise against their chain contract; the QR and QRCP panels, whose
 reductions group differently from their plain versions, within
-4·max(m,nb,8)·eps, pivots equal; the Hessenberg panel within 4·c·eps, c
+4·max(m,nb,8)·eps, pivots equal, and the QR panel also within 4·k·eps, k
+its plan's chain, on both routes; the Hessenberg panel within 4·c·eps, c
 the longest chain of terms it sums for one element; flash attention and
 WKV6 within elementwise bounds of their plain versions run in float64);
 whole solves keep the reference's 200·max(m,n,8)·eps, and every schedule
@@ -328,6 +330,136 @@ def test_lu_solve_small_matches_plain(card, dtype, n, nrhs):
     got = trsm.lu_solve_small(lu, rhs)
     ref = trsm.lu_solve_small_plain(lu, rhs)
     assert _rel(got, ref) < _kernel_tol(dtype, 2 * n)   # two sweeps
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 17, 128, 255, 256])
+def test_lu_solve_small_is_bitwise_the_chain_pair(card, dtype, n):
+    """Both sweeps on the strip kernel in one launch: bitwise the chain
+    contract run twice (unit lower, then upper) and the strip TRSM run
+    twice, for ragged strips (n 17, 255) and tiles (nrhs 1, 40, 300)."""
+    lu = _triangle(n, dtype, card, 47)
+    for nrhs in (1, 16, 40, 300):
+        rhs = _randn((n, nrhs), dtype, card, 48 + nrhs)
+        before = trsm.lu_solve_small.launches
+        got = trsm.lu_solve_small(lu, rhs)
+        assert trsm.lu_solve_small.launches == before + 1
+        want = trsm.trsm_chain(lu, trsm.trsm_chain(lu, rhs, lower=True,
+                                                   unit_diagonal=True),
+                               lower=False)
+        assert torch.equal(got, want), (n, nrhs)
+        y = trsm.trsm(lu, rhs, lower=True, unit_diagonal=True)
+        assert torch.equal(got, trsm.trsm(lu, y, lower=False)), (n, nrhs)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", [0, 1])
+def test_lu_solve_small_in_place_on_strided_views(card, dtype, k):
+    """In place on views of a larger matrix (ld 404): k = 0 keeps every row
+    16-byte aligned (16-byte copies), k = 1 does not (one-element
+    copies)."""
+    nb = 128
+    big = _randn((nb + 300, 404), dtype, card, 49)
+    big[k:k + nb, k:k + nb].diagonal().add_(2.0)
+    lu = big[k:k + nb, k:k + nb]
+    rhs = big[k:k + nb, k + nb:k + nb + 40]
+    want = trsm.trsm_chain(lu, trsm.trsm_chain(lu, rhs, lower=True,
+                                               unit_diagonal=True),
+                           lower=False)
+    got = trsm.lu_solve_small(lu, rhs, out=rhs)
+    assert got.data_ptr() == rhs.data_ptr()
+    assert torch.equal(rhs, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("route", ["resident", "streamed"])
+def test_qr_panel_within_its_chain_bound_on_both_routes(card, dtype, route):
+    """16384 rows keep each block's rows in shared memory; 65536 do not fit
+    and take the streamed route.  Within 4·k·eps of the plain version, k the
+    plan's chain count; deterministic over three runs; T bitwise the LARFT
+    entry's on the same V; a zero column gives tau = 0."""
+    m, nb = (16384 if route == "resident" else 65536), 128
+    plan = panel_qr.plan(m, nb, dtype)
+    assert plan["route"] == route
+    assert plan["chain"] <= -(-m // plan["grid"]) + plan["grid"] + nb
+    a = _randn((m, nb), dtype, card, 50)
+    a[:, 5] = 0.0
+    ref = a.clone()
+    _, tau_ref, t_ref = panel_qr.qr_panel_plain(ref)
+    outs = [panel_qr.qr_panel(a.clone()) for _ in range(3)]
+    for o in outs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(o, outs[0]))
+    got, tau, t = outs[0]
+    tol = 4.0 * plan["chain"] * torch.finfo(dtype).eps
+    assert _rel(got, ref) < tol and _rel(tau, tau_ref) < tol
+    assert _rel(t, t_ref) < tol
+    assert float(tau[5]) == 0.0
+    assert torch.equal(panel_qr.larft(unpack_v(got, nb), tau), t)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,nb", [(5, 8), (100, 128), (700, 33), (3000, 256)])
+def test_qr_panel_in_place_on_strided_views_within_its_chain_bound(card, dtype,
+                                                                   m, nb):
+    """Short and wide panels (m < nb), ragged widths and the widest panel,
+    in place on a view of a larger matrix with a zero column."""
+    src = _randn((m + 3, nb + 7), dtype, card, 51)
+    src[:, 7 + nb // 2] = 0.0
+    panel = src[3:, 7:]
+    ref = panel.clone()
+    _, tau_ref, t_ref = panel_qr.qr_panel_plain(ref)
+    got, tau, t = panel_qr.qr_panel(panel)
+    assert got.data_ptr() == panel.data_ptr()
+    tol = 4.0 * panel_qr.plan(m, nb, dtype)["chain"] * torch.finfo(dtype).eps
+    assert _rel(panel, ref) < tol and _rel(tau, tau_ref) < tol
+    assert _rel(t, t_ref) < tol
+    assert float(tau[nb // 2]) == 0.0 or nb // 2 >= m
+    assert torch.equal(panel_qr.larft(unpack_v(panel, nb), tau), t)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,nb,route", [(3000, 512, "resident"),
+                                         (600, 1200, "streamed")])
+def test_qr_panel_and_larft_on_wide_panels(card, dtype, m, nb, route):
+    """Panels wider than the 256 columns of T a warp holds at once, on both
+    routes: within 4·k·eps, T bitwise the LARFT entry's.  A panel wider
+    than a block's shared memory allows is refused at the wrapper, before
+    any launch."""
+    assert panel_qr.plan(m, nb, dtype)["route"] == route
+    a = _randn((m, nb), dtype, card, 53)
+    ref = a.clone()
+    _, tau_ref, t_ref = panel_qr.qr_panel_plain(ref)
+    got, tau, t = panel_qr.qr_panel(a)
+    tol = 4.0 * panel_qr.plan(m, nb, dtype)["chain"] * torch.finfo(dtype).eps
+    assert _rel(got, ref) < tol and _rel(tau, tau_ref) < tol
+    assert _rel(t, t_ref) < tol
+    v = unpack_v(got, nb)
+    assert torch.equal(panel_qr.larft(v, tau), t)
+    assert _rel(panel_qr.larft(v, tau), panel_qr.larft_plain(v, tau)) < tol
+    before = panel_qr.qr_panel.launches
+    with pytest.raises(ValueError, match="at most"):
+        panel_qr.qr_panel(_randn((40, 4000), dtype, card, 52))
+    assert panel_qr.qr_panel.launches == before
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_qr_factor_with_a_512_block(card, dtype):
+    """The driver with a block wider than 256 columns (the panel, and the
+    Qᵀ apply's ``larft`` at width 512): every variant bitwise ``mtb``, and
+    within the solves' bound of the same driver on the CPU."""
+    m, n, b = 1200, 700, 512
+    a = _randn((m, n), dtype, card, 54)
+    rhs = _randn((m, 3), dtype, card, 55)
+    ops.reset_launches()
+    base = qr_factor(a, b, variant="mtb")
+    assert ops.launches()["qr_panel"] == 2
+    for variant in ("la", "rtm"):
+        assert torch.equal(qr_factor(a, b, variant=variant).packed,
+                           base.packed), variant
+    ref = qr_factor(a.cpu(), b, variant="mtb", device="cpu")
+    tol = _tol(dtype, m, n)
+    assert _rel(base.packed.cpu(), ref.packed) < tol
+    assert _rel(base.apply_qt(rhs).cpu(), ref.apply_qt(rhs.cpu())) < tol
 
 
 def test_wrappers_raise_on_bad_operands(card):

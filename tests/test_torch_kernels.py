@@ -132,6 +132,18 @@ def test_lu_solve_small_plain_matches_pallas(dtype, n, nrhs):
     assert _rel(got, ref) < _tol(n, nrhs)
 
 
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+def test_lu_solve_small_plain_is_the_two_trsm_sweeps_bitwise(dtype):
+    """The plain side of the kernel's contract: the fused solve is the
+    unit-lower sweep, then the upper one, bit for bit."""
+    lu = torch.from_numpy(_rand((40, 40), 13, np.float64)).to(dtype)
+    lu.diagonal().add_(4.0)
+    b = torch.from_numpy(_rand((40, 5), 14, np.float64)).to(dtype)
+    y = trsm.trsm_plain(lu, b, lower=True, unit_diagonal=True)
+    assert torch.equal(trsm.lu_solve_small_plain(lu, b),
+                       trsm.trsm_plain(lu, y, lower=False))
+
+
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     a = torch.from_numpy(_rand((12, 12), 14, np.float64))
     ops.reset_launches()
