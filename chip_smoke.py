@@ -30,9 +30,15 @@
    previous design, timed beside it); its times are the card's on a busy
    card, with one call from an idle card beside them.  The fused small LU
    solve (128 x 16) the same way, bitwise the two chains (unit lower, then
-   upper), beside ``torch.linalg.lu_solve`` on both metrics.  The fused
-   panel updates are held bitwise to the composed kernels, pivots
-   included; the QR, QRCP and Hessenberg panels within 4·k·eps of their
+   upper), beside ``torch.linalg.lu_solve`` on both metrics.  The GETF2
+   panel, bitwise its plain version with equal pivots, on both of its
+   routes (8192 x 128 with each block's rows in shared memory, 65536 x 128
+   streamed), route, grid and rows a block recorded, timed on both
+   metrics beside ``torch.linalg.lu_factor``.  The fused panel updates are
+   held bitwise to the composed kernels, pivots included, and timed on
+   both metrics beside them.  The TRSMs (384 x 7808 and its right mode),
+   the GETF2 panel (8192 x 384) and the fused panel updates (first PU of
+   a block-384 factor) are run again at block 384, wider than 256; the QR, QRCP and Hessenberg panels within 4·k·eps of their
    plain versions, k the longest chain of terms the kernel sums for one
    element, QRCP pivots equal.  The QR panel is also deterministic, its T
    bitwise its LARFT entry's on the same V, its route (rows resident in
@@ -44,12 +50,15 @@
    n = 8192 and ``rtm`` at n = 2048, plus n = 128 with block 128 (the fused
    small solve): scaled residuals, look-ahead factors bitwise equal to
    ``mtb``'s, launch counts, wall times, the cuSOLVER baseline and the
-   tracer's PF/TU/PU/SWAP shares under ``la`` and ``la_mb``.
+   tracer's PF/TU/PU/SWAP shares under ``la`` and ``la_mb``; and at
+   n = 8192 with block 384 (wider than 256), every variant ``rtm``
+   included, bitwise equal to ``mtb``.
 5. second path: ``posv`` (Cholesky, then the solves) on a symmetric
    positive-definite input, under ``mtb``/``la``/``la2``/``la_mb`` at
    n = 8192 and ``rtm`` at n = 2048: the same checks and times, against
    ``torch.linalg.cholesky`` + ``torch.cholesky_solve``, and the time of
-   one PyTorch-op ``cholesky_unblocked`` of a 128 x 128 block.
+   one PyTorch-op ``cholesky_unblocked`` of a 128 x 128 block; block 384
+   as for ``gesv``.
 6. ``gels`` (Householder QR, then the least-squares solve), m = 16384,
    n = 4096, 16 right-hand sides, under ``mtb``/``la``/``la2``/``la_mb``,
    ``rtm`` at 4096 x 1024 and a wide 1024 x 2048 factor: LAPACK's
@@ -141,6 +150,7 @@ import time
 from pathlib import Path
 
 N, BLOCK, NRHS = 8192, 128, 16   # the main path (and gehrd's n)
+WIDE_BLOCK = 384                 # gesv / posv with a block wider than 256
 QR_M, QR_N = 16384, 4096         # the gels paths: a tall 4:1 system
 QR_RTM = (4096, 1024)            # rtm's launches grow as panels x tiles
 QR_WIDE = (1024, 2048)           # wide QR: the row-exhaustion stop
@@ -464,7 +474,6 @@ def main() -> int:
         # bitwise equal to its contract run one thread a right-hand side
         # (trsm_chain: the previous design, timed beside it); ms on a busy
         # card (queued_ms), call_ms from an idle card, host work included.
-        tri = BLOCK * (BLOCK + 1) // 2
 
         def trsm_row(t, rhs, lower, unit, right=False):
             out = torch.empty_like(rhs)
@@ -503,16 +512,18 @@ def main() -> int:
                   f"{tuple(rhs.shape)} lower={lower} unit={unit} "
                   f"right={right}: not bitwise equal to its chain contract")
             err, mx = compare(got, plain())
-            flops = nrhs * BLOCK * (BLOCK - 1) + (0 if unit else nrhs * BLOCK)
+            nb = t.shape[0]
+            flops = nrhs * nb * (nb - 1) + (0 if unit else nrhs * nb)
             return dict(
                 shape=list(rhs.shape), lower=lower, unit=unit, right=right,
-                plan=trsm.plan(BLOCK, nrhs, dtype, right=right),
+                plan=trsm.plan(nb, nrhs, dtype, right=right),
                 bitwise_equal_to_chain=True, rel_err=err, max_abs_err=mx,
-                tol=tolerance(dtype, BLOCK), ms=queued_ms(run, 20),
+                tol=tolerance(dtype, nb), ms=queued_ms(run, 20),
                 call_ms=time_ms(run, 20), chain_ms=queued_ms(chain, 5),
                 plain_ms=time_ms(plain, 3), library_ms=queued_ms(lib, 20),
                 library_call_ms=time_ms(lib, 20),
-                bound=bound(flops, (tri + 2 * BLOCK * nrhs) * size))
+                bound=bound(flops, (nb * (nb + 1) // 2 + 2 * nb * nrhs)
+                            * size))
 
         lu_t = torch.linalg.lu_factor(randn(BLOCK, BLOCK)).LU.contiguous()
         for key, cols in (("trsm", m), ("trsm_solve", NRHS)):
@@ -520,35 +531,66 @@ def main() -> int:
             res[key] = trsm_row(lu_t, rhs, True, True)
             res[f"{key}_upper"] = trsm_row(lu_t, rhs, False, False)
         del rhs
+        # the U12 solve of a block-WIDE_BLOCK factor's first step
+        lu_w = torch.linalg.lu_factor(
+            randn(WIDE_BLOCK, WIDE_BLOCK)).LU.contiguous()
+        res["trsm"]["wide"] = trsm_row(lu_w, randn(WIDE_BLOCK, N - WIDE_BLOCK),
+                                       True, True)
+        del lu_w
 
-        # GETF2 panel, 8192 x 128, in place (timed on a fresh copy; the
-        # copy's own time is subtracted).  Bitwise equal to its plain
-        # version by design: one rounding per product and per difference.
-        panel0 = randn(N, BLOCK)
-        pk, pp = panel0.clone(), panel0.clone()
-        piv_k = panel_lu.lu_panel(pk)
-        piv_p = panel_lu.lu_panel_plain(pp)
-        sync()
-        check(torch.equal(piv_k, piv_p), f"lu_panel {dtype}: pivots differ")
-        check(torch.equal(pk, pp), f"lu_panel {dtype}: factors not bitwise "
-              "equal to the plain version's")
-        err, mx = compare(pk, pp)
-        work = torch.empty_like(panel0)
-        copy_ms = time_ms(lambda: work.copy_(panel0), 10)
-        lu_lib_ms = time_ms(lambda: torch.linalg.lu_factor(panel0), 10)
-        flops = sum((N - j - 1) * (1 + 2 * (BLOCK - j - 1))
-                    for j in range(BLOCK))
-        res["lu_panel"] = dict(
-            shape=[N, BLOCK], pivots_equal=True, bitwise_equal=True,
-            rel_err=err, max_abs_err=mx, tol=0.0,
-            ms=time_ms(lambda: panel_lu.lu_panel(work.copy_(panel0)), 10)
-            - copy_ms,
-            plain_ms=time_ms(
-                lambda: panel_lu.lu_panel_plain(work.copy_(panel0)), 3)
-            - copy_ms,
-            library_ms=lu_lib_ms,
-            bound=bound(flops, 2 * N * BLOCK * size + 4 * BLOCK))
-        del panel0, pk, pp, work
+        # GETF2 panel, 8192 x 128 (resident: each block's rows in shared
+        # memory), QR_STREAMED_M x 128 (streamed from device memory) and
+        # 8192 x WIDE_BLOCK, in place, timed on a fresh copy with the copy's
+        # own time subtracted:
+        # ms on a busy card (queued_ms), call_ms one call from an idle card,
+        # each beside lu_factor on the same metric.  Bitwise equal to its
+        # plain version by design: one rounding per product and per
+        # difference.  Route, grid and rows a block stay in the record.
+        def lu_panel_row(mp, nb=BLOCK):
+            pl = panel_lu.plan(mp, nb, dtype)
+            panel0 = randn(mp, nb)
+            pk, pp = panel0.clone(), panel0.clone()
+            piv_k = panel_lu.lu_panel(pk)
+            piv_p = panel_lu.lu_panel_plain(pp)
+            sync()
+            check(torch.equal(piv_k, piv_p), f"lu_panel {dtype} {mp}x{nb}: "
+                  "pivots differ")
+            check(torch.equal(pk, pp), f"lu_panel {dtype} {mp}x{nb}: "
+                  "factors not bitwise equal to the plain version's")
+            err, mx = compare(pk, pp)
+            work = torch.empty_like(panel0)
+
+            def run():
+                return panel_lu.lu_panel(work.copy_(panel0))
+
+            def copy():
+                return work.copy_(panel0)
+
+            def lib():
+                return torch.linalg.lu_factor(panel0)
+            flops = sum((mp - j - 1) * (1 + 2 * (nb - j - 1))
+                        for j in range(nb))
+            row = dict(
+                shape=[mp, nb], route=pl["route"], grid=pl["grid"],
+                rows_per_block=pl["chunk"], pivots_equal=True,
+                bitwise_equal=True, rel_err=err, max_abs_err=mx, tol=0.0,
+                ms=queued_ms(run, 20) - queued_ms(copy, 20),
+                call_ms=time_ms(run, 20) - time_ms(copy, 20),
+                plain_ms=time_ms(lambda: panel_lu.lu_panel_plain(copy()), 2)
+                - time_ms(copy, 10),
+                library_ms=queued_ms(lib, 10), library_call_ms=time_ms(lib, 10),
+                bound=bound(flops, 2 * mp * nb * size + 4 * nb))
+            del panel0, pk, pp, work
+            return row
+
+        res["lu_panel"] = lu_panel_row(N)
+        check(res["lu_panel"]["route"] == "resident",
+              f"lu_panel {dtype}: {N}x{BLOCK} not on the resident route")
+        stream_lu = lu_panel_row(QR_STREAMED_M)
+        check(stream_lu["route"] == "streamed", f"lu_panel {dtype}: "
+              f"{QR_STREAMED_M}x{BLOCK} not on the streamed route")
+        res["lu_panel"]["streamed"] = stream_lu
+        res["lu_panel"]["wide"] = lu_panel_row(N, WIDE_BLOCK)
 
         def spd(n):
             g = randn(n, n)
@@ -558,14 +600,20 @@ def main() -> int:
         l_c = torch.linalg.cholesky(spd(BLOCK)).contiguous()
         res["trsm_right_lower_t"] = trsm_row(l_c, randn(m, BLOCK), True,
                                              False, right=True)
+        l_w = torch.linalg.cholesky(spd(WIDE_BLOCK)).contiguous()
+        res["trsm_right_lower_t"]["wide"] = trsm_row(
+            l_w, randn(N - WIDE_BLOCK, WIDE_BLOCK), True, False, right=True)
+        del l_w
 
         def fused_row(name, fused, plain, composed, ops_in, outs, flops,
-                      nbytes, tol_k):
+                      nbytes, tol_k, shape, plan=None):
             """A fused panel update on fresh copies of its in-place operands
             ``outs`` (indices into ``ops_in``): bitwise against the composed
             kernels it replaces (pivots too), within 4·k·eps of its plain
             version (which rounds each product where the kernels use FMA),
-            timed with the copies' own time subtracted."""
+            timed with the copies' own time subtracted: ms on a busy card
+            (queued_ms), call_ms one call from an idle card, the composed
+            kernels on both metrics."""
             def fresh():
                 args = list(ops_in)
                 for i in outs:
@@ -584,53 +632,66 @@ def main() -> int:
             if len(got) == 3:
                 check(torch.equal(got[2], ref[2]),
                       f"{name} {dtype}: pivots differ from the plain version's")
-            copy_ms = time_ms(fresh, 10)
-            res[name] = dict(
-                shape=[m, BLOCK, BLOCK], bitwise_equal_to_composed=True,
+            copy_ms, copy_busy = time_ms(fresh, 10), queued_ms(fresh, 10)
+            row = dict(
+                shape=shape, bitwise_equal_to_composed=True,
                 pivots_equal=len(got) == 3 or None, rel_err=err,
                 max_abs_err=mx, tol=tolerance(dtype, tol_k),
-                ms=time_ms(lambda: fused(*fresh()), 10) - copy_ms,
+                ms=queued_ms(lambda: fused(*fresh()), 10) - copy_busy,
+                call_ms=time_ms(lambda: fused(*fresh()), 10) - copy_ms,
                 plain_ms=time_ms(lambda: plain(*fresh()), 3) - copy_ms,
-                composed_ms=time_ms(lambda: composed(*fresh()), 10) - copy_ms,
+                composed_ms=queued_ms(lambda: composed(*fresh()), 10)
+                - copy_busy,
+                composed_call_ms=time_ms(lambda: composed(*fresh()), 10)
+                - copy_ms,
                 library_ms=None, bound=bound(flops, nbytes))
+            if plan is not None:
+                row.update(route=plan["route"], grid=plan["grid"],
+                           rows_per_block=plan["chunk"])
+            return row
 
-        # fused LU panel update at the first PU: L11 128 x 128, L21 8064 x 128
-        l11 = torch.linalg.lu_factor(randn(BLOCK, BLOCK)).LU.contiguous()
-        lu_in = (l11, randn(m, BLOCK), randn(BLOCK, BLOCK), randn(m, BLOCK))
-
+        # the fused panel updates at the first PU of a factor with block bb
+        # (L11 bb x bb, L21 (N - bb) x bb): the main path's BLOCK, and
+        # WIDE_BLOCK (the LU update's rows streamed, the Cholesky diagonal
+        # block past shared memory)
         def composed_lu(l11, l21, a1l, a2l):
             ops.trsm(l11, a1l, lower=True, unit_diagonal=True, out=a1l)
             ops.update(a2l, l21, a1l)
             return a1l, a2l, ops.lu_panel(a2l)
 
-        getf2 = sum((m - j - 1) * (1 + 2 * (BLOCK - j - 1))
-                    for j in range(BLOCK))
-        fused_row("fused_lu_panel_update", fpu.fused_lu_panel_update,
-                  fpu.fused_lu_panel_update_plain, composed_lu, lu_in, (2, 3),
-                  BLOCK * (BLOCK - 1) * BLOCK + 2.0 * m * BLOCK * BLOCK
-                  + getf2,
-                  (tri + m * BLOCK + 2 * BLOCK * BLOCK + 2 * m * BLOCK) * size
-                  + 4 * BLOCK, 2 * BLOCK)
-        del lu_in
+        def fused_lu_row(bb):
+            mm = N - bb
+            l11 = torch.linalg.lu_factor(randn(bb, bb)).LU.contiguous()
+            lu_in = (l11, randn(mm, bb), randn(bb, bb), randn(mm, bb))
+            getf2 = sum((mm - j - 1) * (1 + 2 * (bb - j - 1)) for j in range(bb))
+            return fused_row(
+                "fused_lu_panel_update", fpu.fused_lu_panel_update,
+                fpu.fused_lu_panel_update_plain, composed_lu, lu_in, (2, 3),
+                bb * (bb - 1) * bb + 2.0 * mm * bb * bb + getf2,
+                (bb * (bb + 1) // 2 + mm * bb + 2 * bb * bb + 2 * mm * bb) * size
+                + 4 * bb, 2 * bb, [mm, bb, bb], plan=fpu.plan(bb, mm, bb, dtype))
 
-        # fused Cholesky panel update at the first PU: lrow = L21[:128]
-        l21 = 0.1 * randn(m, BLOCK)
-        panel_c = 0.1 * randn(m, BLOCK)
-        panel_c[:BLOCK] = l21[:BLOCK] @ l21[:BLOCK].mT + spd(BLOCK)
+        def fused_chol_row(bb):
+            mm = N - bb
+            l21 = 0.1 * randn(mm, bb)
+            panel_c = 0.1 * randn(mm, bb)
+            panel_c[:bb] = l21[:bb] @ l21[:bb].mT + spd(bb)
 
-        def composed_chol(lrow, l21, panel):
-            ops.update(panel, l21, lrow.mT.contiguous())
-            return cholesky_panel(panel, BLOCK, "cuda")
+            def composed_chol(lrow, l21, panel):
+                ops.update(panel, l21, lrow.mT.contiguous())
+                return cholesky_panel(panel, bb, "cuda")
 
-        fused_row("fused_cholesky_panel_update",
-                  fpu.fused_cholesky_panel_update,
-                  fpu.fused_cholesky_panel_update_plain, composed_chol,
-                  (l21[:BLOCK], l21, panel_c), (2,),
-                  2.0 * m * BLOCK * BLOCK + BLOCK ** 3 / 3.0
-                  + float(m - BLOCK) * BLOCK * BLOCK,
-                  (BLOCK * BLOCK + 2 * m * BLOCK + m * BLOCK) * size,
-                  2 * BLOCK)
-        del l21, panel_c
+            return fused_row(
+                "fused_cholesky_panel_update", fpu.fused_cholesky_panel_update,
+                fpu.fused_cholesky_panel_update_plain, composed_chol,
+                (l21[:bb], l21, panel_c), (2,),
+                2.0 * mm * bb * bb + bb ** 3 / 3.0 + float(mm - bb) * bb * bb,
+                (bb * bb + 2 * mm * bb + mm * bb) * size, 2 * bb, [mm, bb, bb])
+
+        for key, row_of in (("fused_lu_panel_update", fused_lu_row),
+                            ("fused_cholesky_panel_update", fused_chol_row)):
+            res[key] = row_of(BLOCK)
+            res[key]["wide"] = row_of(WIDE_BLOCK)
 
         # fused small solve: packed 128 x 128 LU, 16 right-hand sides; both
         # sweeps on the TRSM's strip kernel, bitwise the chain pair (unit
@@ -848,9 +909,10 @@ def main() -> int:
                                    "n_rtm": hess_rows[RTM_N, 0]}
 
         for name, r in res.items():
-            check(r["rel_err"] <= r["tol"],
-                  f"{name} {dtype}: kernel vs plain rel err {r['rel_err']} "
-                  f">= {r['tol']}")
+            for rr in (r, r.get("wide", r)):
+                check(rr["rel_err"] <= rr["tol"],
+                      f"{name} {dtype} {rr['shape']}: kernel vs plain rel err "
+                      f"{rr['rel_err']} >= {rr['tol']}")
         rows[str(dtype).replace("torch.", "")] = res
         emit({"phase": "kernels", "dtype": str(dtype), "results": res})
 
@@ -911,6 +973,31 @@ def main() -> int:
                   "scaled_residual": res, "panel_launches": panels,
                   "bitwise_equal_to_mtb": True})
         del base, fac, x
+
+        # a block wider than 256 (the TRSM's x tile sized to it, the fused
+        # PU on the streamed route): every variant bitwise mtb
+        base = None
+        for variant in ("mtb", "rtm", "la", "la2", "la_mb"):
+            sync()
+            t0 = time.perf_counter()
+            fac = lu_factor(a, WIDE_BLOCK, variant=variant)
+            sync()
+            t1 = time.perf_counter()
+            res = scaled_residual(a, fac.solve(b), b, dtype)
+            check(res < RESIDUAL_LIMIT, f"gesv {variant} block {WIDE_BLOCK} "
+                  f"{dtype}: residual {res}")
+            if base is None:
+                base = fac
+            else:
+                check(torch.equal(fac.lu, base.lu)
+                      and torch.equal(fac.ipiv, base.ipiv),
+                      f"{variant} block {WIDE_BLOCK} {dtype}: factors differ "
+                      "from mtb's")
+            emit({"phase": "gesv", "dtype": str(dtype), "n": N,
+                  "block": WIDE_BLOCK, "variant": variant,
+                  "factor_ms": (t1 - t0) * 1e3, "scaled_residual": res,
+                  "bitwise_equal_to_mtb": True})
+        del base, fac
 
         # the vendor-library baseline (cuSOLVER getrf + getrs), timed after
         # one warm-up call (the port's kernels were warmed in phase 3)
@@ -1011,6 +1098,29 @@ def main() -> int:
                   "factor_gflops": chol_flops / (t1 - t0) / 1e9,
                   "scaled_residual": res, "bitwise_equal_to_mtb": True})
         del fac, x
+
+        # a block wider than 256 (the fused PU's diagonal block in device
+        # memory past shared memory): every variant bitwise mtb
+        wide = None
+        for variant in ("mtb", "rtm", "la", "la2", "la_mb"):
+            sync()
+            t0 = time.perf_counter()
+            fac = cholesky_factor(a, WIDE_BLOCK, variant=variant)
+            sync()
+            t1 = time.perf_counter()
+            res = scaled_residual(a, fac.solve(b), b, dtype)
+            check(res < RESIDUAL_LIMIT, f"posv {variant} block {WIDE_BLOCK} "
+                  f"{dtype}: residual {res}")
+            if wide is None:
+                wide = fac
+            else:
+                check(torch.equal(fac.l, wide.l), f"posv {variant} block "
+                      f"{WIDE_BLOCK} {dtype}: factor differs from mtb's")
+            emit({"phase": "posv", "dtype": str(dtype), "n": N,
+                  "block": WIDE_BLOCK, "variant": variant,
+                  "factor_ms": (t1 - t0) * 1e3, "scaled_residual": res,
+                  "bitwise_equal_to_mtb": True})
+        del wide, fac
 
         # the vendor-library baseline (cuSOLVER potrf + potrs), warmed up
         no_tf32()
@@ -1940,11 +2050,12 @@ def main() -> int:
         out = {"max_abs_err": r["max_abs_err"], "ms": r["ms"],
                "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
-        for key in ("composed_ms", "bitwise_equal_to_chain",
-                    "chain_ms", "call_ms", "library_call_ms"):
+        for key in ("composed_ms", "composed_call_ms",
+                    "bitwise_equal_to_chain", "chain_ms", "call_ms",
+                    "library_call_ms"):
             if key in r:
                 out[key] = r[key]
-        for key in ("window", "k_half", "n_rtm", "streamed"):
+        for key in ("window", "k_half", "n_rtm", "streamed", "wide"):
             if key in r:
                 out[key] = numbers(r[key])
         return out

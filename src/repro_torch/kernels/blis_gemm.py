@@ -50,7 +50,7 @@ _PLAN_ARGS = [_build.c_i64, _build.c_i64, _build.c_i64,
 MAPPINGS = ("single", "in_block", "across")
 
 #: Terms of K summed in one chain before the chunks are added: the
-#: kernel's ``KC`` (``csrc/gemm.cu``), which the tests hold this equal to.
+#: kernel's ``KC`` (``csrc/dense.cuh``), which the tests hold this equal to.
 KC = 1024
 
 

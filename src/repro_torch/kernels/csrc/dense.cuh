@@ -6,9 +6,9 @@
 // GEMM-accumulate and a panel factorization, so they share these routines
 // with gemm.cu and panel_lu.cu instead of retyping them.  trsm.cu runs
 // solve_vector only in its chain kernel (the contract, on no path); its
-// strip kernel, which also runs the small LU solve as two walks, keeps
-// solve_vector's order term for term and is held to the chain kernel
-// bitwise:
+// strip routines (strip.cuh), which also run the small LU solve as two walks
+// and the fused LU update's U12, keep solve_vector's order term for term
+// and are held to the chain kernel bitwise:
 //
 //   gemm_step     one term of the GEMM accumulator: acc + a*b in one FMA,
 //                 with alpha already folded into a, k ascending;
@@ -16,9 +16,10 @@
 //                 x[i] = (b[i] - sum_j T[i, j] * x[j]) / T[i, i], one FMA a
 //                 term, ascending j for a lower and descending j for an upper
 //                 triangle;
-//   getf2_grid    the GETF2 column loop of a cooperative grid over a panel in
-//                 device memory (the note in panel_lu.cu says how it works);
-//                 products and differences rounded once each, no FMA.
+//   getf2_rows    the GETF2 column loop of a cooperative grid, each block on
+//                 its own rows, in shared memory or in device memory (the
+//                 note in panel_lu.cu says how it works); products and
+//                 differences rounded once each, no FMA.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -29,6 +30,23 @@ namespace cg = cooperative_groups;
 
 template <typename T>
 __device__ __forceinline__ T gemm_step(T acc, T a, T b) { return fma(a, b, acc); }
+
+// Terms of K summed in one chain before the chunks are added (gemm.cu's
+// split, whose note says how; kernels/blis_gemm.py::KC repeats it for the
+// plain version and the tests hold the two equal).
+constexpr int64_t KC = 1024;
+
+// The f64 tensor-core step of gemm.cu and of the fused LU panel update:
+// d += a * b over one 16 x 8 x 4 step (g = lane/4, q = lane%4): a = A[g][q],
+// A[g+8][q]; b = B[q][g]; d = D[g][2q], D[g][2q+1], D[g+8][2q], D[g+8][2q+1].
+// On an H100 this shape runs at the f64 tensor-core rate (67 TFLOP/s), the
+// older m8n8k4 at half of it; both give bitwise the ascending DFMA chain.
+__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[2], double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(b));
+}
 
 // x[i * xs], i < b, is one right-hand side, solved in place.  The triangle
 // may live in device or shared memory.
@@ -101,7 +119,7 @@ static cudaError_t launch_cooperative(Kernel kernel, int grid, size_t smem, void
 }
 
 // ---------------------------------------------------------------------------
-// GETF2 with partial pivoting on a cooperative grid.
+// GETF2 with partial pivoting over the rows of a cooperative grid.
 // ---------------------------------------------------------------------------
 // (v, i) ranks above (bv, bi): larger value, or the same value at a smaller
 // row.  NaN never ranks above anything.
@@ -110,104 +128,278 @@ __device__ __forceinline__ bool better(T v, int64_t i, T bv, int64_t bi) {
   return v > bv || (v == bv && i < bi);
 }
 
+constexpr int GETF2_THREADS = 256, GETF2_WARPS = GETF2_THREADS / 32;
+constexpr int64_t GETF2_MIN_ROWS = 32;  // rows a block at least
+constexpr int GETF2_MAX_BLOCKS = 256;   // blocks a grid at most (8 a lane to reduce)
+constexpr int GETF2_COLS = 4;           // columns a lane updates at once
+// Shared bytes a block's GETF2 needs before its rows: the warps' maxima,
+// the pivot row and the pivot's index.
 template <typename T>
-__host__ __device__ constexpr size_t getf2_smem(int64_t nb) {
-  return PANEL_THREADS * (sizeof(int64_t) + sizeof(T)) + nb * sizeof(T);
+__host__ __device__ constexpr size_t getf2_scratch(int64_t nb) {
+  return (256 + static_cast<size_t>(nb) * sizeof(T) + 15) / 16 * 16;
 }
 
-// Factor the m x nb panel `a` in place; piv[j] gets the panel-relative pivot
-// of column j.  Every block of the grid calls it; `smem` holds getf2_smem(nb)
-// bytes; cand/rowj/pval/pidx are the double-buffered publication slots
-// (2*G*nb, 2*nb, 2*G, 2*G elements).
+// The rows [r0, r0 + n) of a panel: row rr of them at p + rr * ld, in
+// shared memory (I = int) or in device memory (I = int64_t).
+template <typename T, typename I>
+struct RowSpan {
+  T* p;
+  I ld;
+  int64_t r0;
+  int n;
+  __device__ __forceinline__ T& at(int rr, int c) const { return p[rr * ld + c]; }
+};
+
+// What the blocks of a GETF2 grid of G blocks over nb columns publish, in
+// device memory, double-buffered by the parity of the column c whose pivot
+// search it carries: each block's first largest |a[i, c]| over its rows
+// i >= c (pval, pidx; pidx m where it has none) and a copy of that row
+// (cand), and row c as it stands before the interchange (rowj, by its
+// owner).
 template <typename T>
-__device__ void getf2_grid(int64_t m, int64_t nb, T* a, int64_t lda, int32_t* piv,
-                           T* cand, T* rowj, T* pval, int64_t* pidx, unsigned char* smem) {
-  cg::grid_group grid = cg::this_grid();
-  int64_t* ri = reinterpret_cast<int64_t*>(smem);  // [PANEL_THREADS]
-  T* rv = reinterpret_cast<T*>(ri + PANEL_THREADS); // [PANEL_THREADS]
-  T* urow = rv + PANEL_THREADS;                      // [nb] pivot row
-  __shared__ int64_t s_p;
-
-  const int G = gridDim.x, blk = blockIdx.x, tid = threadIdx.x;
-  int64_t chunk, r0, r1;
-  owned_rows(m, G, blk, &chunk, &r0, &r1);
-  const int64_t steps = min(m, nb);
-
-  for (int64_t j = 0; j < steps; ++j) {
-    const int64_t buf = j & 1;
-    T* cand_b = cand + buf * G * nb;   // [G][nb] candidate rows
-    T* rowj_b = rowj + buf * nb;       // row j before the interchange
-    T* pval_b = pval + buf * G;        // [G] block maxima
-    int64_t* pidx_b = pidx + buf * G;  // [G] their rows
-
-    // A. block-local pivot search over rows max(r0, j) .. r1-1
-    T bv = T(-1);
-    int64_t bi = m;
-    for (int64_t i = max(r0, j) + tid; i < r1; i += PANEL_THREADS) {
-      const T v = fabs(a[i * lda + j]);
-      if (better(v, i, bv, bi)) { bv = v; bi = i; }
-    }
-    rv[tid] = bv;
-    ri[tid] = bi;
-    __syncthreads();
-    for (int s = PANEL_THREADS / 2; s > 0; s >>= 1) {
-      if (tid < s && better(rv[tid + s], ri[tid + s], rv[tid], ri[tid])) {
-        rv[tid] = rv[tid + s];
-        ri[tid] = ri[tid + s];
-      }
-      __syncthreads();
-    }
-    const int64_t lbi = ri[0];
-    if (tid == 0) {
-      pval_b[blk] = rv[0];
-      pidx_b[blk] = lbi;
-    }
-    if (lbi < m)
-      for (int64_t c = tid; c < nb; c += PANEL_THREADS) cand_b[blk * nb + c] = a[lbi * lda + c];
-    if (j >= r0 && j < r1)
-      for (int64_t c = tid; c < nb; c += PANEL_THREADS) rowj_b[c] = a[j * lda + c];
-    grid.sync();
-
-    // B. global pivot, in the same order in every block
-    if (tid == 0) {
-      T gv = T(-1);
-      int64_t gi = m;
-      for (int g = 0; g < G; ++g) {
-        const int64_t i = pidx_b[g];
-        const T v = pval_b[g];
-        if (i < m && better(v, i, gv, gi)) { gv = v; gi = i; }
-      }
-      s_p = gi < m ? gi : j;  // an all-NaN column keeps row j
-    }
-    __syncthreads();
-    const int64_t p = s_p;
-    const T* src = p == j ? rowj_b : cand_b + (p / chunk) * nb;
-    for (int64_t c = tid; c < nb; c += PANEL_THREADS) urow[c] = src[c];
-    if (blk == 0 && tid == 0) piv[j] = static_cast<int32_t>(p);
-    __syncthreads();
-
-    if (p != j) {  // row interchange j <-> p, each row by its owner
-      if (j >= r0 && j < r1)
-        for (int64_t c = tid; c < nb; c += PANEL_THREADS) a[j * lda + c] = urow[c];
-      if (p >= r0 && p < r1)
-        for (int64_t c = tid; c < nb; c += PANEL_THREADS) a[p * lda + c] = rowj_b[c];
-    }
-    __syncthreads();
-
-    const T pivot = urow[j];
-    const int64_t i0 = max(r0, j + 1);
-    for (int64_t i = i0 + tid; i < r1; i += PANEL_THREADS)
-      a[i * lda + j] = div_rn(a[i * lda + j], pivot);
-    __syncthreads();
-
-    const int64_t w = nb - j - 1;
-    if (r1 > i0 && w > 0) {
-      const int64_t total = (r1 - i0) * w;
-      for (int64_t e = tid; e < total; e += PANEL_THREADS) {
-        const int64_t i = i0 + e / w, c = j + 1 + e % w;
-        a[i * lda + c] = sub_rn(a[i * lda + c], mul_rn(a[i * lda + j], urow[c]));
-      }
-    }
-    __syncthreads();
+struct Pub {
+  int64_t* pidx;  // [2][G]
+  T* pval;        // [2][G]
+  T* rowj;        // [2][nb]
+  T* cand;        // [2][G][nb]
+  __host__ __device__ static size_t bytes(int64_t G, int64_t nb) {
+    return 16 * G + (2 * G + 2 * nb + 2 * G * nb) * sizeof(T);
   }
+  __device__ Pub(unsigned char* ws, int G, int nb)
+      : pidx(reinterpret_cast<int64_t*>(ws)),
+        pval(reinterpret_cast<T*>(ws + 16 * static_cast<size_t>(G))),
+        rowj(pval + 2 * G),
+        cand(rowj + 2 * nb) {}
+};
+
+// The best (v, i) of the warp in every lane.  `better` is a total order on
+// the pairs the kernels rank (no NaN, distinct rows), so the butterfly gives
+// what a scan in any order gives.
+template <typename T>
+__device__ __forceinline__ void warp_best(T& v, int64_t& i) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const T ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int64_t oi = __shfl_xor_sync(0xffffffffu, i, off);
+    if (better(ov, oi, v, i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+}
+
+// The block publishes column c's search: lane 0 of each warp holds its
+// warp's best (bv, bi); the block's best row is copied out and the owner
+// of row c copies it.  The grid barrier that follows makes it visible.
+// (Warp 0 alone reducing and copying, the other warps idle, measured
+// slower.)
+template <typename T, typename I>
+__device__ __forceinline__ void getf2_publish(const RowSpan<T, I>& A, int64_t m, int nb, int c,
+                                              const Pub<T>& pub, T* wv, int64_t* wi, T bv,
+                                              int64_t bi) {
+  const int G = gridDim.x, tid = threadIdx.x;
+  if ((tid & 31) == 0) {
+    wv[tid >> 5] = bv;
+    wi[tid >> 5] = bi;
+  }
+  __syncthreads();
+  T v = T(-1);
+  int64_t i = m;
+  for (int w = 0; w < GETF2_WARPS; ++w)
+    if (better(wv[w], wi[w], v, i)) {
+      v = wv[w];
+      i = wi[w];
+    }
+  const int slot = c & 1;
+  if (i < m) {
+    T* dst = pub.cand + (static_cast<size_t>(slot) * G + blockIdx.x) * nb;
+    const int rr = static_cast<int>(i - A.r0);
+    for (int cc = tid; cc < nb; cc += GETF2_THREADS) dst[cc] = A.at(rr, cc);
+  }
+  if (c >= A.r0 && c < A.r0 + A.n) {
+    const int rr = static_cast<int>(c - A.r0);
+    for (int cc = tid; cc < nb; cc += GETF2_THREADS) pub.rowj[slot * nb + cc] = A.at(rr, cc);
+  }
+  if (tid == 0) {
+    pub.pval[slot * G + blockIdx.x] = v;
+    pub.pidx[slot * G + blockIdx.x] = i;
+  }
+}
+
+// Column j's pivot, the same in every block: after a grid barrier (every
+// block has published column j; the slot of j's parity holds it, and no
+// block publishes column j + 2 into it before the next barrier), warp 0
+// reduces the G maxima (lane l takes blocks l, l+32, ... in turn, then a
+// butterfly), leaves the row in *sp (j where the column has no candidate,
+// all NaN) and copies the pivot row as it stands before the interchange
+// into urow: one read of it from L2 a block.
+template <typename T>
+__device__ __forceinline__ int64_t getf2_pivot(const Pub<T>& pub, int j, int64_t m, int nb,
+                                               int64_t* sp, T* urow) {
+  cg::this_grid().sync();
+  if (threadIdx.x < 32) {
+    const int G = gridDim.x, lane = threadIdx.x, slot = j & 1;
+    T gv[GETF2_MAX_BLOCKS / 32];
+    int64_t gi[GETF2_MAX_BLOCKS / 32];
+#pragma unroll
+    for (int k = 0; k < GETF2_MAX_BLOCKS / 32; ++k) {
+      const int g = lane + 32 * k;
+      gv[k] = g < G ? __ldcg(pub.pval + slot * G + g) : T(-1);
+      gi[k] = g < G ? __ldcg(pub.pidx + slot * G + g) : m;
+    }
+    T v = T(-1);
+    int64_t i = m;
+#pragma unroll
+    for (int k = 0; k < GETF2_MAX_BLOCKS / 32; ++k)
+      if (gi[k] < m && better(gv[k], gi[k], v, i)) {
+        v = gv[k];
+        i = gi[k];
+      }
+    warp_best(v, i);
+    const int64_t p = i < m ? i : j;
+    const int64_t chunk = (m + G - 1) / G;  // as owned_rows
+    const T* prow = p == j ? pub.rowj + slot * nb
+                           : pub.cand + (slot * static_cast<size_t>(G) + p / chunk) * nb;
+    for (int c = lane; c < nb; c += 32) urow[c] = __ldcg(prow + c);
+    if (lane == 0) *sp = p;
+  }
+  __syncthreads();
+  return *sp;
+}
+
+// Factor the m x nb panel whose rows the blocks of the grid own (owned_rows)
+// in place; piv[j] gets the panel-relative pivot of column j.  Every block
+// calls it with its rows A; `scratch` holds getf2_scratch<T>(nb) bytes of
+// shared memory.  Each column j is one grid barrier:
+//   * the pivot p and its row (getf2_pivot), read once a block from the
+//     winner's published copy (row j's own copy where p = j) in L2;
+//   * rows j and p interchanged where the block owns them, row p by the
+//     warp that updates it;
+//   * a warp a row at a time (rows rr = warp mod GETF2_WARPS), lanes over
+//     columns: the multiplier div_rn(a[i, j], pivot), then
+//     a[i, c] = sub_rn(a[i, c], mul_rn(l, u[c])) for c > j, each product
+//     and difference rounded once (no FMA), as lu_unblocked does; the lane
+//     of column j + 1 keeps its warp's first largest |a[i, j + 1]|;
+//   * the block publishes column j + 1 (getf2_publish).
+// No atomics take part in any reduction, and the order of every sum and
+// comparison is fixed, so the result is the same on every run and bitwise
+// lu_unblocked's, pivots included.
+template <typename T, typename I>
+__device__ void getf2_rows(const RowSpan<T, I>& A, int64_t m, int nb, int32_t* piv,
+                           const Pub<T>& pub, unsigned char* scratch) {
+  T* wv = reinterpret_cast<T*>(scratch);
+  int64_t* wi = reinterpret_cast<int64_t*>(scratch + 8 * GETF2_WARPS);
+  int64_t* sp = wi + GETF2_WARPS;
+  T* urow = reinterpret_cast<T*>(scratch + 256);  // the pivot row
+  const int tid = threadIdx.x, lane = tid & 31, q = tid >> 5;
+  const int steps = static_cast<int>(m < nb ? m : nb);
+
+  // column 0's search
+  T bv = T(-1);
+  int64_t bi = m;
+  for (int rr = tid; rr < A.n; rr += GETF2_THREADS) {
+    const T v = fabs(A.at(rr, 0));
+    if (better(v, A.r0 + rr, bv, bi)) {
+      bv = v;
+      bi = A.r0 + rr;
+    }
+  }
+  warp_best(bv, bi);
+  getf2_publish(A, m, nb, 0, pub, wv, wi, bv, bi);
+
+  for (int j = 0; j < steps; ++j) {
+    const int64_t p = getf2_pivot(pub, j, m, nb, sp, urow);
+    const T* jrow = pub.rowj + (j & 1) * nb;  // row j before the interchange
+    if (blockIdx.x == 0 && tid == 0) piv[j] = static_cast<int32_t>(p);
+    const T pivot = urow[j];
+    const int64_t jl = j - A.r0, pl = p - A.r0;
+    if (p != j) {
+      if (jl >= 0 && jl < A.n && static_cast<int>(jl) % GETF2_WARPS == q)
+        for (int c = lane; c < nb; c += 32) A.at(static_cast<int>(jl), c) = urow[c];
+      if (pl >= 0 && pl < A.n && static_cast<int>(pl) % GETF2_WARPS == q) {
+        for (int c = lane; c < nb; c += 32) A.at(static_cast<int>(pl), c) = __ldcg(jrow + c);
+        __syncwarp();
+      }
+    }
+    // the warp's rows below j: rr = q (mod GETF2_WARPS), rr >= lo
+    const int64_t lo64 = j + 1 - A.r0;
+    const int lo = static_cast<int>(lo64 < 0 ? 0 : (lo64 > A.n ? A.n : lo64));
+    const int first = q + (lo > q ? (lo - q + GETF2_WARPS - 1) / GETF2_WARPS : 0) * GETF2_WARPS;
+    for (int rr = first + lane * GETF2_WARPS; rr < A.n; rr += 32 * GETF2_WARPS)
+      A.at(rr, j) = div_rn(A.at(rr, j), pivot);
+    __syncwarp();
+    bv = T(-1);
+    bi = m;
+    for (int c0 = j + 1; c0 < nb; c0 += 32 * GETF2_COLS) {
+      T u[GETF2_COLS];
+      int cs[GETF2_COLS];
+#pragma unroll
+      for (int uu = 0; uu < GETF2_COLS; ++uu) {
+        const int c = c0 + lane + 32 * uu;
+        cs[uu] = c < nb ? c : nb - 1;  // columns past nb read column nb - 1, never stored
+        u[uu] = urow[cs[uu]];
+      }
+      const bool search = c0 == j + 1 && lane == 0;  // this lane holds column j + 1
+      int rr = first;
+      for (; rr + GETF2_WARPS < A.n; rr += 2 * GETF2_WARPS) {  // two rows at once
+        const int r2 = rr + GETF2_WARPS;
+        const T l1 = A.at(rr, j), l2 = A.at(r2, j);
+        T x1[GETF2_COLS], x2[GETF2_COLS];
+#pragma unroll
+        for (int uu = 0; uu < GETF2_COLS; ++uu) {
+          x1[uu] = A.at(rr, cs[uu]);
+          x2[uu] = A.at(r2, cs[uu]);
+        }
+#pragma unroll
+        for (int uu = 0; uu < GETF2_COLS; ++uu) {
+          x1[uu] = sub_rn(x1[uu], mul_rn(l1, u[uu]));
+          x2[uu] = sub_rn(x2[uu], mul_rn(l2, u[uu]));
+          if (c0 + lane + 32 * uu < nb) {
+            A.at(rr, cs[uu]) = x1[uu];
+            A.at(r2, cs[uu]) = x2[uu];
+          }
+        }
+        if (search) {
+          const T v1 = fabs(x1[0]), v2 = fabs(x2[0]);
+          if (better(v1, A.r0 + rr, bv, bi)) {
+            bv = v1;
+            bi = A.r0 + rr;
+          }
+          if (better(v2, A.r0 + r2, bv, bi)) {
+            bv = v2;
+            bi = A.r0 + r2;
+          }
+        }
+      }
+      if (rr < A.n) {
+        const T l1 = A.at(rr, j);
+        T x1[GETF2_COLS];
+#pragma unroll
+        for (int uu = 0; uu < GETF2_COLS; ++uu) x1[uu] = A.at(rr, cs[uu]);
+#pragma unroll
+        for (int uu = 0; uu < GETF2_COLS; ++uu) {
+          x1[uu] = sub_rn(x1[uu], mul_rn(l1, u[uu]));
+          if (c0 + lane + 32 * uu < nb) A.at(rr, cs[uu]) = x1[uu];
+        }
+        if (search && better(fabs(x1[0]), A.r0 + rr, bv, bi)) {
+          bv = fabs(x1[0]);
+          bi = A.r0 + rr;
+        }
+      }
+    }
+    if (j + 1 < steps) getf2_publish(A, m, nb, j + 1, pub, wv, wi, bv, bi);
+  }
+  __syncthreads();
+}
+
+// The block's rows between device memory (a + r0 * lda) and the residency
+// (ld nb), a warp a row, lanes over columns.
+template <typename T, bool IN>
+__device__ __forceinline__ void move_rows(T* res, T* a, int64_t lda, int n, int nb) {
+  const int lane = threadIdx.x & 31, q = threadIdx.x >> 5;
+  for (int rr = q; rr < n; rr += GETF2_WARPS)
+    for (int c = lane; c < nb; c += 32) {
+      if (IN) res[rr * nb + c] = a[rr * lda + c];
+      else a[rr * lda + c] = res[rr * nb + c];
+    }
 }

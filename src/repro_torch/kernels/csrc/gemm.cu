@@ -46,10 +46,9 @@
 // chunk 0's thread and then by the reduction kernel.
 #include "dense.cuh"
 
-// Terms of K summed in one chain before the chunks are added: the split's
-// only constant (kernels/blis_gemm.py::KC repeats it for the plain version;
-// the tests hold the two equal).
-constexpr int64_t KC = 1024;
+// KC, the terms of K summed in one chain before the chunks are added, is
+// the split's only constant; it lives in dense.cuh, beside gemm_step, since
+// the fused LU panel update sums its update in the same chunks.
 
 enum Mapping { SINGLE = 0, IN_BLOCK = 1, ACROSS = 2 };
 
@@ -291,16 +290,8 @@ gemm_fma_kernel(GemmArgs<float> p) {
 // ---------------------------------------------------------------------------
 // double: DMMA core, mma.sync m16n8k4, a (MT*16) x (NT8*8) tile a warp
 // ---------------------------------------------------------------------------
-// d += a * b over one 16 x 8 x 4 step (g = lane/4, q = lane%4): a = A[g][q],
-// A[g+8][q]; b = B[q][g]; d = D[g][2q], D[g][2q+1], D[g+8][2q], D[g+8][2q+1].
-// On an H100 this shape runs at the f64 tensor-core rate (67 TFLOP/s), the
-// older m8n8k4 at half of it; both give bitwise the ascending DFMA chain.
-__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[2], double b) {
-  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
-      "{%0,%1,%2,%3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a[0]), "d"(a[1]), "d"(b));
-}
+// The step is dense.cuh's dmma (m16n8k4), which the fused LU panel update
+// shares.
 
 template <int BM, int BN, int BK>
 struct DmmaSmem {

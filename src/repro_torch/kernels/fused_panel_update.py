@@ -11,9 +11,13 @@ what bounds them on an H100 and how their design answers that.
 
 Unlike the reference, there is no size at which a GPU call leaves its
 kernel: the reference falls back to composed code when the panel does not
-fit its VMEM budget, while these kernels take every panel height (the
-panel stays in device memory).  And they compute at the input dtype, where
-the TPU kernels compute in f32.
+fit its VMEM budget, while these kernels take every panel height (the LU
+kernel keeps a block's rows in shared memory where they fit, else streams
+them, as the panel kernel does; :func:`plan` shows which) and every block
+the TRSM kernel takes (L11 up to ``trsm.max_rows``; the Cholesky kernel
+keeps its diagonal block in shared memory where it fits, else in device
+memory).  And they compute at the input dtype, where the TPU kernels
+compute in f32.
 
 The plain PyTorch versions are literally the composition they replace —
 the plain versions of the TRSM, GEMM-accumulate and GETF2 kernels for LU;
@@ -29,6 +33,8 @@ the port's engine updates one working copy of the matrix.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional
 
 import torch
 
@@ -36,24 +42,22 @@ from repro_torch.core.cholesky import cholesky_unblocked
 from repro_torch.core.lu import lu_unblocked
 from repro_torch.kernels import _build
 from repro_torch.kernels.blis_gemm import gemm_accum_plain
-from repro_torch.kernels.trsm import (MAX_ROWS, trsm_plain,
-                                      trsm_right_lower_t_plain)
+from repro_torch.kernels.trsm import trsm_plain, trsm_right_lower_t_plain
 
 __all__ = ["fused_lu_panel_update", "fused_lu_panel_update_plain",
-           "fused_cholesky_panel_update", "fused_cholesky_panel_update_plain"]
+           "fused_cholesky_panel_update", "fused_cholesky_panel_update_plain",
+           "plan"]
 
 _LIB = "fused_pu"
 _c = _build
-_LU_GRID_ARGS = [_c.c_i64, _c.c_i64, _c.c_i64, ctypes.POINTER(ctypes.c_int)]
+_LU_PLAN_ARGS = [_c.c_i64, _c.c_i64, _c.c_i64, ctypes.POINTER(_c.c_i64)]
 _LU_ARGS = [_c.c_i64, _c.c_i64, _c.c_i64, _c.c_ptr, _c.c_i64, _c.c_ptr,
             _c.c_i64, _c.c_ptr, _c.c_i64, _c.c_ptr, _c.c_i64, _c.c_ptr,
-            ctypes.c_int, _c.c_ptr, _c.c_ptr, _c.c_ptr, _c.c_ptr, _c.c_ptr]
+            ctypes.c_int, ctypes.c_int, _c.c_i64, _c.c_i64, ctypes.c_int,
+            _c.c_ptr, _c.c_ptr]
 _CHOL_GRID_ARGS = [_c.c_i64, _c.c_i64, ctypes.POINTER(ctypes.c_int)]
 _CHOL_ARGS = [_c.c_i64, _c.c_i64, _c.c_i64, _c.c_ptr, _c.c_i64, _c.c_ptr,
               _c.c_i64, _c.c_ptr, _c.c_i64, ctypes.c_int, _c.c_ptr]
-#: Shared memory one block may use on an H100 (227 KB); the Cholesky kernel
-#: keeps the bn × bn diagonal block and one column there.
-_CHOL_SMEM_BYTES = 232448
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +103,42 @@ def _grid(symbol, argtypes, *sizes) -> int:
     return grid.value
 
 
+@functools.lru_cache(maxsize=None)
+def _lu_plan(b: int, m: int, bn: int, dtype: torch.dtype, index: int) -> dict:
+    out = (_c.c_i64 * 9)()
+    fn = _build.function(_LIB, f"repro_fused_lu_plan_{_build.SUFFIX[dtype]}",
+                         _LU_PLAN_ARGS)
+    with torch.cuda.device(index):
+        err = fn(b, m, bn, out)
+    if err and 0 < out[7] < b:
+        raise ValueError(f"fused_lu_panel_update: the kernel takes L11 of at "
+                         f"most {out[7]} rows of {dtype} on this card (its "
+                         f"shared memory), got {b}")
+    _build.check_launch(_LIB, err, f"fused_lu_panel_update plan for b {b}, "
+                        f"{m} x {bn}")
+    return {"route": "resident" if out[1] else "streamed", "grid": out[0],
+            "chunk": out[2], "smem_bytes": out[3], "workspace_bytes": out[4],
+            "threads": out[5], "segment_rows": out[6], "max_rows": out[7],
+            "update_terms": out[8]}
+
+
+def plan(b: int, m: int, bn: int, dtype: torch.dtype, *,
+         device: Optional[torch.device] = None) -> dict:
+    """How the fused LU panel update runs for a ``b × b`` L11 and an
+    ``m × bn`` panel on a CUDA device: ``route`` (the panel's rows
+    ``resident`` in shared memory or ``streamed``), ``grid`` blocks of
+    ``threads``, rows a block (``chunk``), dynamic shared memory a block,
+    workspace bytes, the rows of L11 its U12 solve stages a step
+    (``segment_rows``), the widest L11 the card takes (``max_rows``) and
+    the terms of k its update stages at once (``update_terms``: fewer where
+    more would push the rows out of shared memory).
+    Builds the library; cached per shape."""
+    device = torch.device(device or "cuda")
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return dict(_lu_plan(b, m, bn, dtype, index))
+
+
 def fused_lu_panel_update(l11: torch.Tensor, l21: torch.Tensor,
                           a1l: torch.Tensor, a2l: torch.Tensor):
     """PU(k+1) of LU: l11 (b, b) unit lower, l21 (m, b), a1l (b, bn),
@@ -112,24 +152,20 @@ def fused_lu_panel_update(l11: torch.Tensor, l21: torch.Tensor,
         [l11, l21, a1l, a2l])
     if device.type == "cpu":
         return fused_lu_panel_update_plain(l11, l21, a1l, a2l)
-    if b > MAX_ROWS:
-        raise ValueError(f"fused_lu_panel_update: the kernel takes L11 of at "
-                         f"most {MAX_ROWS} rows, got {b}")
     piv = torch.empty(min(m, bn), dtype=torch.int32, device=device)
     if piv.numel() == 0:
         return a1l, a2l, piv
-    sfx = _build.SUFFIX[dtype]
+    pl = _lu_plan(b, m, bn, dtype, device.index)
+    ws = torch.empty(pl["workspace_bytes"], dtype=torch.uint8, device=device)
     with _build.device_guard(device):
-        g = _grid(f"repro_fused_lu_grid_{sfx}", _LU_GRID_ARGS, b, m, bn)
-        cand = torch.empty(2 * g * bn, dtype=dtype, device=device)
-        rowj = torch.empty(2 * bn, dtype=dtype, device=device)
-        pval = torch.empty(2 * g, dtype=dtype, device=device)
-        pidx = torch.empty(2 * g, dtype=torch.int64, device=device)
         p = _build.ptr
-        err = _build.function(_LIB, f"repro_fused_lu_{sfx}", _LU_ARGS)(
+        err = _build.function(_LIB, f"repro_fused_lu_{_build.SUFFIX[dtype]}",
+                              _LU_ARGS)(
             b, m, bn, p(l11), _build.ld(l11), p(l21), _build.ld(l21), p(a1l),
-            _build.ld(a1l), p(a2l), _build.ld(a2l), p(piv), g, p(cand),
-            p(rowj), p(pval), p(pidx), _build.stream_of(device))
+            _build.ld(a1l), p(a2l), _build.ld(a2l), p(piv), pl["grid"],
+            int(pl["route"] == "resident"), pl["smem_bytes"],
+            pl["segment_rows"], pl["update_terms"], p(ws),
+            _build.stream_of(device))
     _build.check_launch(_LIB, err, "fused_lu_panel_update kernel launch")
     fused_lu_panel_update.launches += 1
     return a1l, a2l, piv
@@ -151,10 +187,6 @@ def fused_cholesky_panel_update(lrow: torch.Tensor, l21: torch.Tensor,
                          f"fewer than its {bn} columns")
     if device.type == "cpu":
         return fused_cholesky_panel_update_plain(lrow, l21, panel)
-    if bn * (bn + 1) * panel.element_size() > _CHOL_SMEM_BYTES:
-        raise ValueError(f"fused_cholesky_panel_update: a {bn} x {bn} "
-                         f"{dtype} diagonal block does not fit one block's "
-                         f"shared memory")
     if panel.numel() == 0:
         return panel
     sfx = _build.SUFFIX[dtype]

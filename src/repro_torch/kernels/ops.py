@@ -62,7 +62,7 @@ hessenberg_panel = _phess.hessenberg_panel
 lu_solve_small = _tr.lu_solve_small
 fused_lu_panel_update = _fpu.fused_lu_panel_update
 fused_cholesky_panel_update = _fpu.fused_cholesky_panel_update
-SMALL_SOLVE_MAX_N = _tr.MAX_ROWS
+SMALL_SOLVE_MAX_N = _tr.SMALL_SOLVE_MAX_N
 
 
 def update(c, a, b):

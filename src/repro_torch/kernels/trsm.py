@@ -13,10 +13,11 @@ three.
   here each row of B is one right-hand side, staged transposed in shared
   memory, so both modes run one kernel.
 * :func:`lu_solve_small` replaces ``repro/kernels/trsm.py::lu_solve_small``:
-  forward unit-lower then backward upper substitution on a packed LU
-  (n ≤ 256) in one launch.  The strip kernel walks the unit-lower strips
-  top-down, then the upper strips bottom-up, on one x tile in shared
-  memory: B read once, X written once.
+  forward unit-lower then backward upper substitution on a packed LU in
+  one launch; the solve drivers send it n ≤ :data:`SMALL_SOLVE_MAX_N`.
+  The strip kernel walks the unit-lower strips top-down, then the upper
+  strips bottom-up, on one x tile in shared memory: B read once, X
+  written once.
 
 What bounds them on an H100 is latency: every element of X is a chain of
 up to b dependent FMAs, while the bytes (B read, X written once) take
@@ -26,8 +27,12 @@ right-hand sides and all b rows of them in shared memory, walks the
 triangle in strips of R rows (top-down for lower, bottom-up for upper),
 solves each strip's R × R diagonal block one thread a right-hand side,
 then applies the strip to the rows not yet solved with every thread.
-:func:`plan` shows the tile, the strip, the threads and the shared memory
-chosen for a shape (the small LU solve takes the left solve's plan).
+Any b runs: where the strips of all b rows would not fit shared memory
+beside the tile, they are staged in segments.  :func:`plan` shows the
+tile, the strip, the segment, the threads and the shared memory chosen
+for a shape (the small LU solve takes the left solve's plan), and the
+widest b the card takes (:func:`max_rows`; about 3400 in f64 and 7000 in
+f32 on an H100), beyond which the wrappers raise.
 
 The rounding contract is ``solve_vector`` (``csrc/dense.cuh``): each
 element starts from B, takes ``fma(-T[i, j], x[j], acc)`` in ascending j
@@ -47,6 +52,7 @@ compute at the input dtype (the reference's TPU kernel casts to f32).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -55,11 +61,14 @@ from repro_torch.kernels import _build
 
 __all__ = ["trsm", "trsm_plain", "trsm_right_lower_t",
            "trsm_right_lower_t_plain", "lu_solve_small",
-           "lu_solve_small_plain", "trsm_chain", "plan", "MAX_ROWS"]
+           "lu_solve_small_plain", "trsm_chain", "plan", "max_rows",
+           "SMALL_SOLVE_MAX_N"]
 
 _LIB = "trsm"
-#: Largest triangle the kernels take (rows of the right-hand side).
-MAX_ROWS = 256
+#: Widest system the solve drivers send to :func:`lu_solve_small` (one
+#: panel of the default block); the kernel itself takes any
+#: :func:`max_rows`.
+SMALL_SOLVE_MAX_N = 256
 _TRSM_ARGS = [_build.c_i64, _build.c_i64, _build.ctypes.c_int,
               _build.ctypes.c_int, _build.c_ptr, _build.c_i64, _build.c_ptr,
               _build.c_i64, _build.c_ptr, _build.c_i64, _build.c_ptr]
@@ -121,9 +130,11 @@ def _check(what, t, b, out, right=False):
     if t.shape[1] != n or b.shape[1 if right else 0] != n:
         raise ValueError(f"{what}: triangle {tuple(t.shape)} does not match "
                          f"rhs {tuple(b.shape)}")
-    if device.type == "cuda" and n > MAX_ROWS:
-        raise ValueError(f"{what}: the kernel takes at most {MAX_ROWS} rows, "
-                         f"got {n}")
+    if device.type == "cuda" and n > _widest(dtype, right, device.index):
+        raise ValueError(f"{what}: the kernel takes at most "
+                         f"{_widest(dtype, right, device.index)} rows of "
+                         f"{dtype} on this card (its shared memory), got "
+                         f"{n}")
     if out is not None:
         _build.check_matrix(f"{what} out", out, dtype, device)
         if out.shape != b.shape:
@@ -135,8 +146,8 @@ def _check(what, t, b, out, right=False):
 def trsm(t: torch.Tensor, b: torch.Tensor, *, lower: bool = True,
          unit_diagonal: bool = False,
          out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Solve ``T·X = B`` for lower or upper ``T`` (b ≤ 256 rows on the GPU);
-    ``out=b`` solves in place."""
+    """Solve ``T·X = B`` for lower or upper ``T`` (up to :func:`max_rows`
+    rows on the GPU); ``out=b`` solves in place."""
     dtype, device = _check("trsm", t, b, out)
     if device.type == "cpu":
         return trsm_plain(t, b, lower=lower, unit_diagonal=unit_diagonal,
@@ -159,8 +170,8 @@ def trsm(t: torch.Tensor, b: torch.Tensor, *, lower: bool = True,
 def trsm_right_lower_t(l: torch.Tensor, b: torch.Tensor, *,
                        unit_diagonal: bool = False,
                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Solve ``X·Lᵀ = B`` for lower ``L`` (b ≤ 256 columns of B on the
-    GPU); ``out=b`` solves in place."""
+    """Solve ``X·Lᵀ = B`` for lower ``L`` (up to :func:`max_rows` columns
+    of B on the GPU); ``out=b`` solves in place."""
     dtype, device = _check("trsm_right_lower_t", l, b, out, right=True)
     if device.type == "cpu":
         return trsm_right_lower_t_plain(l, b, unit_diagonal=unit_diagonal,
@@ -208,26 +219,60 @@ def trsm_chain(t: torch.Tensor, b: torch.Tensor, *, lower: bool = True,
     return out
 
 
+def _index(device: Optional[torch.device]) -> int:
+    device = torch.device(device or "cuda")
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(rows: int, rhs: int, dtype: torch.dtype, right: bool,
+          index: int) -> tuple:
+    out = (_build.c_i64 * 7)()
+    fn = _build.function(_LIB, f"repro_trsm_plan_{_build.SUFFIX[dtype]}",
+                         _PLAN_ARGS)
+    with torch.cuda.device(index):
+        err = fn(rows, rhs, int(right), out)
+    if err and 0 < out[6] < rows:
+        raise ValueError(f"trsm: the kernel takes at most {out[6]} rows of "
+                         f"{dtype} on this card (its shared memory), got "
+                         f"{rows}")
+    _build.check_launch(_LIB, err, f"trsm plan for {rows} x {rhs}")
+    return tuple(out)
+
+
 def plan(rows: int, rhs: int, dtype: torch.dtype, *, right: bool = False,
          device: Optional[torch.device] = None) -> dict:
     """How the TRSM kernel solves ``rhs`` right-hand sides of ``rows``
     elements on a CUDA device: right-hand sides per block (``nc``), strip
-    rows (``r``), threads and blocks, dynamic shared memory a block.
-    Builds the library."""
-    out = (_build.c_i64 * 5)()
-    fn = _build.function(_LIB, f"repro_trsm_plan_{_build.SUFFIX[dtype]}",
-                         _PLAN_ARGS)
-    with torch.cuda.device(device or torch.device("cuda")):
-        err = fn(rows, rhs, int(right), out)
-    _build.check_launch(_LIB, err, "trsm plan")
+    rows (``r``), threads and blocks, dynamic shared memory a block, the
+    rows of the triangle a step stages (``segment_rows``: all of them,
+    rounded up to whole strips, where they fit) and the widest triangle
+    the card takes (``max_rows``).  Builds the library; cached per
+    shape."""
+    out = _plan(rows, rhs, dtype, bool(right), _index(device))
     return {"nc": out[0], "r": out[1], "threads": out[2],
-            "smem_bytes": out[3], "blocks": out[4]}
+            "smem_bytes": out[3], "blocks": out[4], "segment_rows": out[5],
+            "max_rows": out[6]}
+
+
+@functools.lru_cache(maxsize=None)
+def _widest(dtype: torch.dtype, right: bool, index: int) -> int:
+    return _plan(1, 1, dtype, right, index)[6]
+
+
+def max_rows(dtype: torch.dtype, *, right: bool = False,
+             device: Optional[torch.device] = None) -> int:
+    """The widest triangle the TRSM kernels take on a CUDA device: an x
+    tile of 8 right-hand sides and two strip buffers of one strip's
+    segment in one block's shared memory."""
+    return _widest(dtype, bool(right), _index(device))
 
 
 def lu_solve_small(lu: torch.Tensor, b: torch.Tensor, *,
                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Solve ``L·U·X = B`` from a packed (already row-permuted) LU with
-    n ≤ 256, both sweeps in one launch."""
+    """Solve ``L·U·X = B`` from a packed (already row-permuted) LU, both
+    sweeps in one launch."""
     dtype, device = _check("lu_solve_small", lu, b, out)
     if device.type == "cpu":
         return lu_solve_small_plain(lu, b, out=out)

@@ -202,3 +202,19 @@ def test_inputs_are_copied_and_checked():
         cholesky_factor(np.ones((4, 3)), 2, device="cpu")
     with pytest.raises(ValueError, match="depth"):
         cholesky.cholesky_lookahead(a, 8, depth=0, device="cpu")
+
+
+def test_posv_la_mb_with_a_block_wider_than_256_matches_reference():
+    """As the LU test of ``test_torch_lu.py``: ``posv`` la_mb at a block past
+    256 against the reference's ``posv`` la_mb (its fused kernel computes in
+    float32: 200·max(n,8)·eps(f32)); the port's la_mb factor bitwise its
+    mtb's."""
+    n, b = 320, 288
+    a, rhs = _spd(n, "float64", seed=23)
+    x = posv(a, rhs, b, variant="la_mb", device="cpu")
+    ref_x = ref_solve.posv(jnp.asarray(a), jnp.asarray(rhs), b,
+                           variant="la_mb")
+    assert _rel(x, ref_x) < _tol(n, "float32")
+    fac = cholesky_factor(a, b, variant="la_mb", device="cpu")
+    base = cholesky_factor(a, b, variant="mtb", device="cpu")
+    assert torch.equal(fac.l, base.l)

@@ -61,6 +61,15 @@ def _kernel_tol(dtype, k):
     return 4.0 * max(k, 8) * torch.finfo(dtype).eps
 
 
+def _scaled_residual(a, x, b):
+    """‖A·x − b‖ / (n·eps·‖A‖·‖x‖), the smoke run's check of a solve
+    (bound 100)."""
+    eps = torch.finfo(x.dtype).eps
+    a, x, b = a.double(), x.double(), b.double()
+    return float((a @ x - b).norm()
+                 / (a.shape[0] * eps * a.norm() * x.norm()))
+
+
 def _rel(x, ref):
     return float((x.double() - ref.double()).norm()
                  / ref.double().norm().clamp_min(1e-300))
@@ -310,6 +319,42 @@ def test_trsm_plan_fits_the_card(card):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nb", [257, 384, 512, 1000, 2000])
+def test_trsm_wide_triangles_are_bitwise_the_chain(card, dtype, nb):
+    """Triangles wider than 256 rows: the x tile sized to b, NC narrowed
+    where a wide tile would not fit, and past about 600 (f64) or 1100
+    (f32) rows the strips staged in segments; every mode bitwise the
+    chain contract (which itself solves in device memory where its tile
+    would not fit)."""
+    p = trsm.plan(nb, 8064, dtype)
+    assert p["smem_bytes"] <= 227 * 1024 and p["max_rows"] >= 2000
+    if nb == 2000:
+        assert p["segment_rows"] < nb   # the segmented walk
+    t = _triangle(nb, dtype, card, 64)
+    for n in (1, 33, 8064):
+        rhs = _randn((nb, n), dtype, card, 65 + n)
+        for lower, unit in ((True, True), (False, False)):
+            got = trsm.trsm(t, rhs, lower=lower, unit_diagonal=unit)
+            want = trsm.trsm_chain(t, rhs, lower=lower, unit_diagonal=unit)
+            assert torch.equal(got, want), (nb, n, lower)
+        rows = rhs.mT.contiguous()
+        got = trsm.trsm_right_lower_t(t, rows)
+        assert torch.equal(got, trsm.trsm_chain(t, rows, lower=True,
+                                                right=True)), (nb, n)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_trsm_refuses_a_triangle_wider_than_the_card_takes(card, dtype):
+    widest = trsm.max_rows(dtype)
+    assert widest == trsm.plan(16, 16, dtype)["max_rows"]
+    t = torch.eye(widest + 1, dtype=dtype, device=card)
+    before = trsm.trsm.launches
+    with pytest.raises(ValueError, match="at most"):
+        trsm.trsm(t, torch.ones(widest + 1, 2, dtype=dtype, device=card))
+    assert trsm.trsm.launches == before
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m,nb", [(1, 1), (40, 16), (1000, 128), (3, 8)])
 def test_lu_panel_matches_plain_bitwise(card, dtype, m, nb):
     panel = _randn((m, nb), dtype, card, 10)
@@ -320,6 +365,84 @@ def test_lu_panel_matches_plain_bitwise(card, dtype, m, nb):
     assert panel_lu.lu_panel.launches == before + 1
     assert torch.equal(piv, piv_ref)
     assert torch.equal(panel, ref)
+
+
+def _same(x, y):
+    """Equal elements, NaN exactly where the other has NaN (torch.equal
+    counts NaN unequal to itself)."""
+    nan = torch.isnan(x)
+    return torch.equal(nan, torch.isnan(y)) and torch.equal(
+        torch.where(nan, 0.0, x), torch.where(nan, 0.0, y))
+
+
+def _panel_bitwise(panel, runs=1):
+    """lu_panel on ``panel`` in place against lu_panel_plain on a copy:
+    equal pivots, equal elements; ``runs`` kernel runs from the same input
+    give the same elements."""
+    start = panel.clone()
+    ref = panel.clone()
+    piv_ref = panel_lu.lu_panel_plain(ref)
+    piv = panel_lu.lu_panel(panel)
+    assert torch.equal(piv, piv_ref)
+    assert _same(panel, ref)
+    for _ in range(runs - 1):
+        again = start.clone()
+        assert torch.equal(panel_lu.lu_panel(again), piv)
+        assert _same(again, panel)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("route", ["resident", "streamed"])
+def test_lu_panel_bitwise_on_both_routes(card, dtype, route):
+    """The main path's 8192 × 128 panel keeps its rows in shared memory; a
+    panel too tall for the SMs' shared memory streams them.  Both are
+    bitwise the plain version, pivots equal, the same bits over 3 runs."""
+    m = 8192 if route == "resident" else (40000 if dtype == torch.float64
+                                         else 80000)
+    assert panel_lu.plan(m, 128, dtype)["route"] == route
+    _panel_bitwise(_randn((m, 128), dtype, card, 60), runs=3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,nb", [(3000, 1), (3000, 7), (3000, 256),
+                                  (3000, 384), (2000, 512), (100, 300),
+                                  (31, 33)])
+def test_lu_panel_bitwise_at_every_width(card, dtype, m, nb):
+    """Widths 1 to 512 (the wide ones on the streamed route), and panels
+    with fewer rows than columns."""
+    _panel_bitwise(_randn((m, nb), dtype, card, 61))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lu_panel_ties_zero_and_nan_columns(card, dtype):
+    """Repeated rows (ties: the first index wins, as argmax), an exactly
+    zero column (pivot row j, a zero pivot) and an all-NaN column (row j
+    kept): the kernel's pivots and bits are the plain version's."""
+    m, nb = 3000, 64
+    panel = _randn((m, nb), dtype, card, 62)
+    panel[1500] = panel[200]
+    panel[2900] = panel[200]
+    panel[:, 5] = 0.0
+    _panel_bitwise(panel.clone())
+    nan = panel.clone()
+    nan[:, 9] = float("nan")
+    _panel_bitwise(nan)
+    tied = panel.clone()
+    tied[:, 0] = 1.0   # every row ties in column 0
+    _panel_bitwise(tied)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", [0, 1])
+def test_lu_panel_in_place_on_strided_views(card, dtype, k):
+    """A panel view of a larger matrix (ld 404 > nb, base offsets 0 and 1),
+    as the engine passes it; the rest of the matrix is untouched."""
+    big = _randn((3000, 404), dtype, card, 63)
+    ref = big.clone()
+    piv_ref = panel_lu.lu_panel_plain(ref[k:, k:k + 128])
+    piv = panel_lu.lu_panel(big[k:, k:k + 128])
+    assert torch.equal(piv, piv_ref)
+    assert torch.equal(big, ref)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -468,26 +591,25 @@ def test_wrappers_raise_on_bad_operands(card):
         blis_gemm.gemm(a.mT, a)
     with pytest.raises(ValueError, match="dtype"):
         blis_gemm.gemm(a, a.float())
-    with pytest.raises(ValueError, match="at most 256"):
-        trsm.trsm(torch.eye(300, device=card), torch.ones(300, 2,
-                                                          device=card))
+    # blocks wider than 256 (and a Cholesky diagonal block past shared
+    # memory) run: the calls that were refused here before
+    ones = torch.ones(300, 2, device=card)
+    assert torch.equal(trsm.trsm(torch.eye(300, device=card), ones), ones)
     with pytest.raises(ValueError, match="not supported"):
         panel_lu.lu_panel(a.half())
-    with pytest.raises(ValueError, match="at most 256"):
-        trsm.trsm_right_lower_t(torch.eye(300, device=card),
-                                torch.ones(2, 300, device=card))
+    assert torch.equal(trsm.trsm_right_lower_t(torch.eye(300, device=card),
+                                               ones.mT.contiguous()),
+                       ones.mT)
     with pytest.raises(ValueError, match="unit stride"):
         trsm.trsm_right_lower_t(a, a.mT)
-    with pytest.raises(ValueError, match="at most 256"):
-        fpu.fused_lu_panel_update(torch.eye(300, device=card, dtype=a.dtype),
-                                  torch.ones(40, 300, device=card,
-                                             dtype=a.dtype),
-                                  torch.ones(300, 8, device=card,
-                                             dtype=a.dtype),
-                                  torch.ones(40, 8, device=card, dtype=a.dtype))
-    big = torch.ones(400, 200, device=card, dtype=a.dtype)
-    with pytest.raises(ValueError, match="shared memory"):
-        fpu.fused_cholesky_panel_update(big[:200, :16], big[:, :16], big)
+    lu_in = _lu_operands(40, 300, 8, a.dtype, card, 13)
+    want = _composed_lu(*(t.clone() for t in lu_in))
+    got = fpu.fused_lu_panel_update(*(t.clone() for t in lu_in))
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    chol_in = _chol_operands(400, 16, 200, a.dtype, card, 13)
+    want = _composed_cholesky(*(t.clone() for t in chol_in))
+    assert torch.equal(
+        fpu.fused_cholesky_panel_update(*(t.clone() for t in chol_in)), want)
     with pytest.raises(ValueError, match="fewer than"):
         fpu.fused_cholesky_panel_update(a[:8, :4], a[:5, :4], a[:5, :8])
     with pytest.raises(ValueError, match="dtype"):
@@ -617,6 +739,86 @@ def test_fused_updates_in_place_on_strided_views(card):
     got = fpu.fused_lu_panel_update(a[k:kn, k:kn], a[kn:, k:kn],
                                     a[k:kn, kn:kn + bn], a[kn:, kn:kn + bn])
     assert torch.equal(got[2], want[2]) and torch.equal(a, ref)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,b", [(8064, 384), (8064, 512), (700, 300),
+                                 (2000, 1100)])
+def test_fused_lu_wide_blocks_match_composed_kernels_bitwise(card, dtype, m,
+                                                             b):
+    """b = bn past 256: U12 by the segmented strip walk where L11 is wide,
+    the update on the streamed route where the rows do not fit beside it,
+    K past KC (1100) in chunks as the GEMM sums it; bitwise the composed
+    kernels, pivots equal to the plain version's."""
+    l11, l21, a1l, a2l = _lu_operands(m, b, b, dtype, card, 21)
+    composed = _composed_lu(l11, l21, a1l.clone(), a2l.clone())
+    plain_piv = fpu.fused_lu_panel_update_plain(l11, l21, a1l.clone(),
+                                                a2l.clone())[2]
+    got = fpu.fused_lu_panel_update(l11, l21, a1l, a2l)
+    assert torch.equal(got[2], composed[2])
+    assert torch.equal(got[0], composed[0]) and torch.equal(got[1], composed[1])
+    if dtype == torch.float64:
+        assert torch.equal(got[2], plain_piv)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_lu_routes_and_determinism(card, dtype):
+    """The main path's PU keeps its rows resident; 3 runs give the same
+    bits; a panel too tall for the SMs' shared memory streams, bitwise the
+    composed kernels too."""
+    assert fpu.plan(128, 8064, 128, dtype)["route"] == "resident"
+    ops_in = _lu_operands(8064, 128, 128, dtype, card, 22)
+    first = fpu.fused_lu_panel_update(*(t.clone() for t in ops_in))
+    for _ in range(2):
+        again = fpu.fused_lu_panel_update(*(t.clone() for t in ops_in))
+        assert all(torch.equal(x, y) for x, y in zip(again, first))
+    m = 40000 if dtype == torch.float64 else 80000
+    assert fpu.plan(128, m, 128, dtype)["route"] == "streamed"
+    ops_in = _lu_operands(m, 128, 128, dtype, card, 23)
+    want = _composed_lu(*(t.clone() for t in ops_in))
+    got = fpu.fused_lu_panel_update(*(t.clone() for t in ops_in))
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("bn", [192, 384])
+def test_fused_cholesky_wide_diagonal_block_matches_composed(card, bn):
+    """A diagonal block past one block's shared memory (f64 bn > 169):
+    POTF2 in device memory, L11 read from there; bitwise the composed
+    kernels."""
+    lrow, l21, panel = _chol_operands(3000, 128, bn, torch.float64, card, 24)
+    want = _composed_cholesky(lrow, l21, panel.clone())
+    got = fpu.fused_cholesky_panel_update(lrow, l21, panel)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b", [384, 512])
+def test_drivers_with_blocks_wider_than_256(card, dtype, b):
+    """gesv / lu_factor and posv / cholesky_factor at blocks the card
+    refused before: every variant bitwise mtb, residuals within the
+    drivers' bound."""
+    n = 2000
+    a = _randn((n, n), dtype, card, 25)
+    rhs = _randn((n, 3), dtype, card, 26)
+    ops.reset_launches()
+    base = lu_factor(a, b, variant="mtb")
+    for variant in ("rtm", "la", "la2", "la_mb"):
+        fac = lu_factor(a, b, variant=variant)
+        assert torch.equal(fac.lu, base.lu), variant
+        assert torch.equal(fac.ipiv, base.ipiv), variant
+    assert _scaled_residual(a, gesv(a, rhs, b, variant="la_mb"), rhs) < 100
+    spd = _spd(n, dtype, card, 27)
+    cbase = cholesky_factor(spd, b, variant="mtb")
+    for variant in ("rtm", "la", "la2", "la_mb"):
+        assert torch.equal(cholesky_factor(spd, b, variant=variant).l,
+                           cbase.l), variant
+    assert _scaled_residual(spd, posv(spd, rhs, b, variant="la_mb"), rhs) < 100
+    counts = ops.launches()
+    assert all(counts[k] > 0 for k in ("trsm", "lu_panel",
+                                       "fused_lu_panel_update",
+                                       "trsm_right_lower_t",
+                                       "fused_cholesky_panel_update"))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

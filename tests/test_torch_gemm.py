@@ -52,10 +52,11 @@ def _chain(c, a, b, alpha, beta):
 
 
 def test_kc_is_the_kernel_source_constant():
-    """The plain version's KC is the kernel's (the card tests also read it
-    back from the built library through ``plan``)."""
+    """The plain version's KC is the kernels' (``csrc/dense.cuh``, which
+    the GEMM and the fused LU panel update share; the card tests also read
+    it back from the built library through ``plan``)."""
     found = re.findall(r"constexpr int64_t KC = (\d+);",
-                       (_build.CSRC / "gemm.cu").read_text())
+                       (_build.CSRC / "dense.cuh").read_text())
     assert found == [str(KC)]
     assert KC % 16 == 0   # whole k slices of the kernel's tiles
 

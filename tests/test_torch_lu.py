@@ -27,7 +27,7 @@ from repro.obs import tracer as ref_tracer
 from repro_torch.core import lookahead, lu, pipeline
 from repro_torch.kernels import fused_panel_update, ops
 from repro_torch.obs import tracer
-from repro_torch.solve import LUFactors
+from repro_torch.solve import LUFactors, gesv, lu_factor
 
 jax.config.update("jax_enable_x64", True)
 
@@ -279,3 +279,23 @@ def test_lu_inverse_matches_reference(dtype):
     assert inv.shape == (n, n)
     assert _rel(inv, ref.inverse()) < _tol(n, dtype)
     assert _rel(a @ inv.numpy(), np.eye(n)) < _tol(n, dtype)
+
+
+def test_gesv_la_mb_with_a_block_wider_than_256_matches_reference():
+    """A block past 256 (the widest the card took before): the port's
+    ``gesv`` la_mb against the reference's ``gesv`` la_mb, whose fused
+    kernel computes in float32, so within 200·max(n,8)·eps(f32), the
+    conformance tolerance of la_mb; and the port's la_mb factors bitwise
+    its mtb's."""
+    import repro.solve as ref_solve
+
+    n, b = 320, 288
+    a = _rand((n, n), 21, np.float64)
+    rhs = _rand((n, 3), 22, np.float64)
+    x = gesv(a, rhs, b, variant="la_mb", device="cpu")
+    ref_x = ref_solve.gesv(jnp.asarray(a), jnp.asarray(rhs), b,
+                           variant="la_mb")
+    assert _rel(x, ref_x) < _tol(n, np.float32)
+    fac = lu_factor(a, b, variant="la_mb", device="cpu")
+    base = lu_factor(a, b, variant="mtb", device="cpu")
+    assert torch.equal(fac.lu, base.lu) and torch.equal(fac.ipiv, base.ipiv)
