@@ -11,7 +11,8 @@
 3. kernels: every kernel of the main paths against its plain PyTorch
    version on the card, at the main path's shapes (n = 8192, b = 128 for
    LU and Cholesky; the 16384 x 128 QR panel, and the first global QRCP
-   block, 16384 x 4096 with 128 steps, and a 16384 x 128 window; the GEMM
+   block, 16384 x 4096 with 128 steps, a 16384 x 128 window and a
+   65536 x 128 window; the GEMM
    also at the gels paths' products, the 16384-deep V^T C and V^T B and
    the QRCP update; the Hessenberg panel at n = 8192, 128 columns from
    k = 0 and k = 4096, and from k = 0 at n = 2048; float64 and float32),
@@ -38,13 +39,15 @@
    held bitwise to the composed kernels, pivots included, and timed on
    both metrics beside them.  The TRSMs (384 x 7808 and its right mode),
    the GETF2 panel (8192 x 384) and the fused panel updates (first PU of
-   a block-384 factor) are run again at block 384, wider than 256; the QR, QRCP and Hessenberg panels within 4·k·eps of their
-   plain versions, k the longest chain of terms the kernel sums for one
-   element, QRCP pivots equal.  The QR panel is also deterministic, its T
-   bitwise its LARFT entry's on the same V, its route (rows resident in
-   shared memory, or streamed) and k recorded, and it is run as well on a
-   65536-row panel, which takes the streamed route; it and ``larft`` are
-   timed on both metrics, the panel beside ``torch.geqrf``.
+   a block-384 factor) are run again at block 384, wider than 256; the QR,
+   QRCP and Hessenberg panels within 4·k·eps of their plain versions, k
+   the longest chain of terms the kernel sums for one element (its plan's
+   ``chain``), QRCP pivots equal.  The three are deterministic; the QR
+   panel's T is bitwise its LARFT entry's on the same V; the QR and QRCP
+   panels run on both routes (rows resident in shared memory: the
+   16384-row panel and window; streamed: the 65536-row ones and the global
+   block); route, grid and k recorded; all are timed on both metrics, the
+   QR panel beside ``torch.geqrf``.
 4. main path: ``gesv`` (LU with partial pivoting, then the solves) through
    the port's entry points, under ``mtb``/``la``/``la2``/``la_mb`` at
    n = 8192 and ``rtm`` at n = 2048, plus n = 128 with block 128 (the fused
@@ -739,11 +742,6 @@ def main() -> int:
         # ms on a busy card (queued_ms), call_ms one call from an idle card,
         # each beside geqrf (no T) on the same metric; the in-place panel is
         # timed on a fresh copy, the copy's own time subtracted.
-        sfx = _build.SUFFIX[dtype]
-
-        def chain(grid):
-            return -(-QR_M // grid) + grid + BLOCK
-
         def qr_row(mq):
             pl = panel_qr.plan(mq, BLOCK, dtype)
             qpanel0 = randn(mq, BLOCK)
@@ -812,89 +810,123 @@ def main() -> int:
               f"streamed: kernel vs plain rel err {stream_row['rel_err']}")
         res["qr_panel"]["streamed"] = stream_row
 
-        # xLAQPS: the global path's first block (16384 x 4096, 128 steps)
-        # and a qrcp_local window (16384 x 128); pivots equal to the plain
-        # version's, arrays within 4·k·eps, k as for the QR panel (up to
-        # BLOCK terms of the F recurrence).  The bound counts the per-step
-        # pass over the block where it exceeds L2 (one read of the
-        # L2-resident window).  No PyTorch call computes it.
-        g_qrcp = panel_qrcp._grid(sfx, QR_M, BLOCK)
-        qrcp_rows = {}
-        for cols in (QR_N, BLOCK):
-            blk0 = randn(QR_M, cols)
-            bk_, bp_ = blk0.clone(), blk0.clone()
-            got = panel_qrcp.qrcp_panel(bk_, BLOCK)
-            want = panel_qrcp.qrcp_panel_plain(bp_, BLOCK)
+        # xLAQPS: the global path's first block (16384 x 4096, 128 steps,
+        # streamed from device memory), a qrcp_local window (16384 x 128,
+        # its rows resident in the blocks' shared memory) and a window too
+        # tall for that (QR_STREAMED_M x 128, streamed), in place; pivots
+        # equal to the plain version's, three arrays and tau within 4·c·eps,
+        # c the plan's chain (a row's bring-current, a block's column sum,
+        # the cross-block sum, the F recurrence); the same bits on a second
+        # run.  ms on a busy card (queued_ms), call_ms one call from an idle
+        # card, each on a fresh copy with the copy's own time subtracted.
+        # The bound counts the per-step pass over the block where it
+        # exceeds L2 (one read of an L2-resident window).  No PyTorch call
+        # computes it.  Route, grid and chain stay in this phase's record.
+        def qrcp_row(rows, cols):
+            pl = panel_qrcp.plan(rows, cols, BLOCK, dtype)
+            blk0 = randn(rows, cols)
+            got = panel_qrcp.qrcp_panel(blk0.clone(), BLOCK)
+            again = panel_qrcp.qrcp_panel(blk0.clone(), BLOCK)
+            want = panel_qrcp.qrcp_panel_plain(blk0.clone(), BLOCK)
             sync()
+            what = f"qrcp_panel {dtype} {rows}x{cols}"
             check(torch.equal(got[4], want[4]),
-                  f"qrcp_panel {dtype} {QR_M}x{cols}: pivots differ from the "
-                  "plain version's")
-            errs = {what: compare(x, y)[0] for what, x, y in zip(
+                  f"{what}: pivots differ from the plain version's")
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"{what}: not deterministic")
+            errs = {what_: compare(x, y)[0] for what_, x, y in zip(
                 ("block", "v", "f", "tau"), got[:4], want[:4])}
+            max_abs = compare(got[0], want[0])[1]
+            del got, again, want
             work = torch.empty_like(blk0)
-            copy_ms = time_ms(lambda: work.copy_(blk0), 5)
-            passes = sum(float(QR_M - j) * cols for j in range(BLOCK))
-            flops = 2.0 * QR_M * cols + sum(
-                2.0 * (QR_M - j) * (cols + 2 * j) + 4.0 * cols * j
+
+            def run():
+                return panel_qrcp.qrcp_panel(work.copy_(blk0), BLOCK)
+
+            def copy():
+                return work.copy_(blk0)
+            passes = sum(float(rows - j) * cols for j in range(BLOCK))
+            flops = 2.0 * rows * cols + sum(
+                2.0 * (rows - j) * (cols + 2 * j) + 4.0 * cols * j
                 for j in range(BLOCK))
-            qrcp_rows[cols] = dict(
-                shape=[QR_M, cols, BLOCK], pivots_equal=True,
-                rel_err=max(errs.values()), rel_errs=errs,
-                max_abs_err=compare(got[0], want[0])[1], grid=g_qrcp,
-                tol=tolerance(dtype, chain(g_qrcp)),
-                ms=time_ms(lambda: panel_qrcp.qrcp_panel(work.copy_(blk0),
-                                                         BLOCK), 3) - copy_ms,
+            row = dict(
+                shape=[rows, cols, BLOCK], route=pl["route"], grid=pl["grid"],
+                rows_per_block=pl["chunk"], owners=pl["owners"],
+                chain=pl["chain"], pivots_equal=True, deterministic=True,
+                rel_err=max(errs.values()), rel_errs=errs, max_abs_err=max_abs,
+                tol=tolerance(dtype, pl["chain"]),
+                ms=queued_ms(run, 10) - queued_ms(copy, 10),
+                call_ms=time_ms(run, 10) - time_ms(copy, 10),
                 plain_ms=time_ms(lambda: panel_qrcp.qrcp_panel_plain(
-                    work.copy_(blk0), BLOCK), 1) - copy_ms,
+                    copy(), BLOCK), 1) - time_ms(copy, 10),
                 library_ms=None,
-                bound=bound(flops, (streamed(passes, QR_M * cols)
-                                    + QR_M * cols + QR_M * BLOCK
+                bound=bound(flops, (streamed(passes, rows * cols)
+                                    + rows * cols + rows * BLOCK
                                     + cols * BLOCK) * size))
-            del blk0, bk_, bp_, got, want, work
-        res["qrcp_panel"] = {**qrcp_rows[QR_N], "window": qrcp_rows[BLOCK]}
-        check(qrcp_rows[BLOCK]["rel_err"] <= qrcp_rows[BLOCK]["tol"],
-              f"qrcp_panel {dtype} window: kernel vs plain rel err "
-              f"{qrcp_rows[BLOCK]['rel_err']}")
+            check(row["rel_err"] <= row["tol"], f"{what}: kernel vs plain rel "
+                  f"err {row['rel_err']} >= {row['tol']}")
+            del blk0, work
+            return row
+
+        qrcp_rows = {key: qrcp_row(rows, cols) for key, rows, cols in (
+            ("global", QR_M, QR_N), ("window", QR_M, BLOCK),
+            ("streamed", QR_STREAMED_M, BLOCK))}
+        for key, route in (("global", "streamed"), ("window", "resident"),
+                           ("streamed", "streamed")):
+            check(qrcp_rows[key]["route"] == route, f"qrcp_panel {dtype} "
+                  f"{key}: {qrcp_rows[key]['route']}, expected {route}")
+        res["qrcp_panel"] = {**qrcp_rows["global"],
+                             "window": qrcp_rows["window"],
+                             "streamed": qrcp_rows["streamed"]}
 
         # xLAHR2: gehrd's first panel (k = 0) and one from the middle
         # (k = N/2) of an N x N matrix, and the first panel of the rtm
         # path's RTM_N x RTM_N matrix (L2-resident in both dtypes), in
-        # place.
-        # Arrays within 4·c·eps of the plain version, c the longest chain
-        # of terms the kernel sums for one element: a GEMV row (a lane's
-        # ⌈(N−k)/32⌉ columns and five shuffle steps) or a cross-block sum
-        # (⌈N/G⌉ rows, then G partials), then the 2·BLOCK terms of the
-        # right and left updates.  The bound
-        # counts each column's GEMV pass over columns kj+1.. of every row
-        # where the matrix exceeds L2 (one read of it where it fits), the
-        # panel read and written, and V and W written.  No PyTorch call
-        # computes it.
+        # place.  Arrays within 4·c·eps of the plain version, c the plan's
+        # chain (the two updates, the sums of Vᵀcol and of the norm, Tᵀu
+        # and the GEMV that one element of W runs through); the same bits
+        # on a second run.  ms on a busy card (queued_ms), call_ms one call
+        # from an idle card.  The bound counts each column's GEMV pass over
+        # columns kj+1.. of every row where the matrix exceeds L2 (one read
+        # of it where it fits), the panel read and written, and V and W
+        # written.  No PyTorch call computes it.  Grid, what each block
+        # keeps in shared memory and the chain stay in this phase's record.
         hess_rows = {}
         for nh, k0 in ((N, 0), (N, N // 2), (RTM_N, 0)):
-            g_hess = panel_hessenberg._grid(sfx, nh, BLOCK)
+            pl = panel_hessenberg.plan(nh, k0, BLOCK, dtype)
             a0 = randn(nh, nh)
-            ak, ap = a0.clone(), a0.clone()
-            got = panel_hessenberg.hessenberg_panel(ak, k0, BLOCK)
-            want = panel_hessenberg.hessenberg_panel_plain(ap, k0, BLOCK)
+            got = panel_hessenberg.hessenberg_panel(a0.clone(), k0, BLOCK)
+            again = panel_hessenberg.hessenberg_panel(a0.clone(), k0, BLOCK)
+            want = panel_hessenberg.hessenberg_panel_plain(a0.clone(), k0,
+                                                           BLOCK)
             sync()
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"hessenberg_panel {dtype} n={nh} k={k0}: not "
+                  "deterministic")
             cmp = [compare(x, y) for x, y in zip(got, want)]
             errs = dict(zip(("a", "v", "t", "w", "tau"), (c[0] for c in cmp)))
-            del ak, ap, got, want
+            del got, again, want
             work = torch.empty_like(a0)
-            copy_ms = time_ms(lambda: work.copy_(a0), 5)
+
+            def run():
+                return panel_hessenberg.hessenberg_panel(work.copy_(a0), k0,
+                                                         BLOCK)
+
+            def copy():
+                return work.copy_(a0)
             passes = sum(float(nh) * (nh - k0 - j - 1) for j in range(BLOCK))
-            chain = max(-(-(nh - k0) // 32) + 5, -(-nh // g_hess) + g_hess) \
-                + 2 * BLOCK
             hess_rows[nh, k0] = dict(
-                shape=[nh, nh, BLOCK], k=k0, rel_err=max(errs.values()),
-                rel_errs=errs, grid=g_hess, chain=chain,
+                shape=[nh, nh, BLOCK], k=k0, grid=pl["grid"],
+                rows_per_block=pl["chunk"], shared=pl["shared"],
+                chain=pl["chain"], deterministic=True,
+                rel_err=max(errs.values()), rel_errs=errs,
                 max_abs_err=max(c[1] for c in cmp),
-                tol=tolerance(dtype, chain),
-                ms=time_ms(lambda: panel_hessenberg.hessenberg_panel(
-                    work.copy_(a0), k0, BLOCK), 3) - copy_ms,
+                tol=tolerance(dtype, pl["chain"]),
+                ms=queued_ms(run, 5) - queued_ms(copy, 5),
+                call_ms=time_ms(run, 5) - time_ms(copy, 5),
                 plain_ms=time_ms(
                     lambda: panel_hessenberg.hessenberg_panel_plain(
-                        work.copy_(a0), k0, BLOCK), 1) - copy_ms,
+                        copy(), k0, BLOCK), 1) - time_ms(copy, 5),
                 library_ms=None,
                 bound=bound(2.0 * passes + 8.0 * nh * BLOCK * BLOCK,
                             (streamed(passes, nh * (nh - k0))

@@ -42,6 +42,10 @@ DENSE_DTYPES = (torch.float32, torch.float64)
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
+#: the code a plan returns where no launch of one block an SM fits the
+#: card (cudaErrorInvalidConfiguration)
+NO_FIT = 9
+
 c_ptr = ctypes.c_void_p
 c_i64 = ctypes.c_int64
 c_f64 = ctypes.c_double

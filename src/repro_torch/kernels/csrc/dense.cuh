@@ -108,14 +108,202 @@ static cudaError_t cooperative_grid(Kernel kernel, size_t smem, int64_t m, int* 
 
 template <typename Kernel>
 static cudaError_t launch_cooperative(Kernel kernel, int grid, size_t smem, void** args,
-                                      cudaStream_t stream) {
+                                      cudaStream_t stream, int threads = PANEL_THREADS) {
   if (grid < 1) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
-                                    dim3(PANEL_THREADS), args, smem, stream);
+                                    dim3(threads), args, smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The SMs of the current card and the most shared memory a block may opt in
+// to; an error where the card runs no cooperative launch.
+static cudaError_t panel_card(int* sms, int* optin) {
+  int dev = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return err;
+}
+
+// Whether `kernel` runs at least one block of `threads` an SM with `smem`
+// bytes of dynamic shared memory, so that a grid of one block an SM is
+// co-resident.
+template <typename Kernel>
+static cudaError_t fits_one_block(Kernel kernel, int threads, size_t smem, bool* ok) {
+  int per_sm = 0;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  *ok = err == cudaSuccess && per_sm >= 1;
+  return err;
+}
+
+// ---------------------------------------------------------------------------
+// Fixed-order sums for the panels' grids (no atomics: the same bits on every
+// run and in every block that takes the same sum).
+// ---------------------------------------------------------------------------
+constexpr int PANEL_MAX_BLOCKS = 256;  // blocks a grid at most: a lane sums 8 partials
+constexpr int LANE_PARTIALS = PANEL_MAX_BLOCKS / 32;
+
+// Sum of x over the warp, the same bits in every lane.
+template <typename T>
+__device__ __forceinline__ T warp_sum(T x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// Lane `lane`'s share of the G block partials at src[g * stride], g =
+// lane, lane+32, ..., in turn (all loaded before the first is added).
+template <typename T>
+__device__ __forceinline__ T lane_partials(const T* src, int64_t stride, int G, int lane) {
+  T x[LANE_PARTIALS];
+#pragma unroll
+  for (int k = 0; k < LANE_PARTIALS; ++k) {
+    const int g = lane + 32 * k;
+    x[k] = g < G ? __ldcg(src + g * stride) : T(0);
+  }
+  T acc = T(0);
+#pragma unroll
+  for (int k = 0; k < LANE_PARTIALS; ++k) acc += x[k];
+  return acc;
+}
+
+// The cross-block sums of the entries e < ne, entry e's G block partials at
+// src[e * G + g]: the block's warps take the entries in turn (warp w:
+// entries w, w + warps, ..., CROSS_BATCH of them with all their partials
+// loaded before any is added), lane l adds blocks l, l + 32, ... and a
+// butterfly gives every lane the sum; done(e, sum) runs in every lane.
+// Each sum takes ceil(G/32) terms in turn, then five shuffle steps.
+constexpr int CROSS_BATCH = 4;
+template <typename T, typename Done>
+__device__ __forceinline__ void cross_sums(const T* src, int ne, int G, Done done) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  for (int e0 = warp; e0 < ne; e0 += warps * CROSS_BATCH) {
+    T s[CROSS_BATCH];
+#pragma unroll
+    for (int b = 0; b < CROSS_BATCH; ++b) {
+      const int e = e0 + b * warps;
+      s[b] = e < ne ? lane_partials(src + static_cast<int64_t>(e) * G, 1, G, lane) : T(0);
+    }
+#pragma unroll
+    for (int b = 0; b < CROSS_BATCH; ++b) s[b] = warp_sum(s[b]);
+#pragma unroll
+    for (int b = 0; b < CROSS_BATCH; ++b)
+      if (e0 + b * warps < ne) done(e0 + b * warps, s[b]);
+  }
+}
+
+// Group sums: for the items e < ne, 2^lg lanes an item take the terms i in
+// [lo(e), hi(e)) -- lane s of the group i = lo + s, lo + s + 2^lg, ... in
+// one chain, acc = step(e, i, acc) -- then lg shuffle steps; done(e, sum)
+// runs in the group's first lane.  The loop over the items is warp-uniform,
+// so every lane reaches every shuffle.  Each sum takes ceil(len / 2^lg)
+// terms in turn, then lg.
+template <typename T, typename Lo, typename Hi, typename Step, typename Done>
+__device__ __forceinline__ void group_sums(int ne, int lg, Lo lo, Hi hi, Step step, Done done) {
+  const int lane = threadIdx.x & 31, tpr = 1 << lg;
+  const int per_warp = 32 >> lg, stride = (blockDim.x >> 5) * per_warp;
+  const int sub = lane & (tpr - 1);
+  for (int base = (threadIdx.x >> 5) * per_warp; base < ne; base += stride) {
+    const int e = base + (lane >> lg);
+    T acc = T(0);
+    if (e < ne) {
+      const int h = hi(e);
+#pragma unroll 4
+      for (int i = lo(e) + sub; i < h; i += tpr) acc = step(e, i, acc);
+    }
+    for (int off = tpr >> 1; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (e < ne && sub == 0) done(e, acc);
+  }
+}
+
+// lg of the lanes an item for `items` items over `threads` threads: as many
+// as leave every item a group at once, from 1 to 32.
+__host__ __device__ constexpr int group_lg(int64_t items, int threads) {
+  int lg = 0;
+  while (lg < 5 && items * (int64_t{2} << lg) <= threads) ++lg;
+  return lg;
+}
+
+// Row groups of block_col_sums over nc columns: threads / min(nc, threads),
+// at most COLSUM_GROUPS.
+constexpr int COLSUM_GROUPS = 16;
+__host__ __device__ constexpr int colsum_groups(int64_t nc, int threads) {
+  const int64_t cw = nc < threads ? (nc > 0 ? nc : 1) : threads;
+  const int64_t rg = threads / cw;
+  return static_cast<int>(rg < COLSUM_GROUPS ? rg : COLSUM_GROUPS);
+}
+
+template <typename T, int U, bool SQ, bool CG, typename I>
+__device__ __forceinline__ void col_sums_impl(const T* m, I ld, const T* x, I xs, int lo, int n,
+                                              int nc, T* red, T* out) {
+  const int tid = threadIdx.x, threads = blockDim.x;
+  const int cw = nc < threads ? nc : threads, rg = colsum_groups(nc, threads);
+  const int grp = tid / cw, ci = tid - grp * cw;
+  if (grp < rg) {
+    for (int i0 = ci; i0 < nc; i0 += cw * U) {
+      T acc[U];
+      int cs[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        acc[u] = T(0);
+        cs[u] = min(i0 + cw * u, nc - 1);  // past nc: column nc - 1, never stored
+      }
+#pragma unroll(sizeof(T) == 4 ? 4 : 2)
+      for (int rr = lo + grp; rr < n; rr += rg) {
+        const T* row = m + rr * ld;
+        const T xr = SQ ? T(0) : x[rr * xs];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const T y = CG ? __ldcg(row + cs[u]) : row[cs[u]];
+          acc[u] = fma(SQ ? y : xr, y, acc[u]);
+        }
+      }
+      if (rg == 1) {
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+          if (i0 + cw * u < nc)
+            out[static_cast<int64_t>(i0 + cw * u) * gridDim.x + blockIdx.x] = acc[u];
+      } else {
+        red[grp * cw + ci] = acc[0];
+      }
+    }
+  }
+  if (rg > 1) {  // nc <= threads / 2: one column a thread, the groups added in order
+    __syncthreads();
+    for (int i = tid; i < nc; i += threads) {
+      T s = red[i];
+      for (int g = 1; g < rg; ++g) s += red[g * cw + i];
+      out[static_cast<int64_t>(i) * gridDim.x + blockIdx.x] = s;
+    }
+  }
+}
+
+// The block's partial sums over its rows rr in [lo, n) of x_rr * M[rr, i]
+// for the columns i < nc (row rr of M at m + rr * ld; x_rr = x[rr * xs], or
+// with SQ M[rr, i] itself, the column's squares), into out[i * G + block].
+// Threads take columns (consecutive threads consecutive columns, up to
+// COLSUM_COLS at once where the columns outnumber the threads) and row
+// groups rr = g (mod rg), rg = colsum_groups(nc); the groups' sums are
+// added in group order through red[] (blockDim.x entries).  Each sum takes
+// ceil((n - lo) / rg) terms in turn, then rg - 1.  CG: M is in device memory
+// and streamed past L1.
+constexpr int COLSUM_COLS = 8;
+template <typename T, bool SQ, bool CG = false, typename I>
+__device__ __forceinline__ void block_col_sums(const T* m, I ld, const T* x, I xs, int lo, int n,
+                                               int nc, T* red, T* out) {
+  if (nc <= 0) return;
+  if (nc <= static_cast<int>(blockDim.x))
+    col_sums_impl<T, 1, SQ, CG>(m, ld, x, xs, lo, n, nc, red, out);
+  else
+    col_sums_impl<T, COLSUM_COLS, SQ, CG>(m, ld, x, xs, lo, n, nc, red, out);
 }
 
 // ---------------------------------------------------------------------------

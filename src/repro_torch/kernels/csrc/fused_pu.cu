@@ -386,26 +386,6 @@ fused_chol_pu_kernel(int64_t b, int64_t m, int64_t bn, const T* __restrict__ lro
 // ---------------------------------------------------------------------------
 // Plans and launches.
 // ---------------------------------------------------------------------------
-static cudaError_t card(int* sms, int* optin) {
-  int dev = 0, coop = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return err;
-}
-
-template <typename Kernel>
-static cudaError_t fits(Kernel kernel, size_t smem, bool* ok) {
-  int per_sm = 0;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, GETF2_THREADS, smem);
-  *ok = err == cudaSuccess && per_sm >= 1;
-  return err;
-}
 
 // How PU(k+1) of LU runs for L11 b x b and an m x bn panel: out = {blocks,
 // resident (1) or streamed (0), rows a block (chunk), dynamic shared memory
@@ -418,7 +398,7 @@ template <typename T>
 static cudaError_t lu_pu_plan(int64_t b, int64_t m, int64_t bn, int64_t* out) {
   if (b < 0 || m <= 0 || bn <= 0) return cudaErrorInvalidValue;
   int sms = 0, optin = 0;
-  cudaError_t err = card(&sms, &optin);
+  cudaError_t err = panel_card(&sms, &optin);
   if (err != cudaSuccess) return err;
   const size_t limit = static_cast<size_t>(optin);
   out[7] = strip::widest<T, FU_NC, false>(limit - getf2_scratch<T>(bn));
@@ -443,11 +423,13 @@ static cudaError_t lu_pu_plan(int64_t b, int64_t m, int64_t bn, int64_t* out) {
     if (smem > limit) continue;
     bool ok = false;
     if (resident) {
-      err = fits(fused_lu_pu_kernel<T, true, true>, smem, &ok);
-      if (err == cudaSuccess && ok) err = fits(fused_lu_pu_kernel<T, true, false>, smem, &ok);
+      err = fits_one_block(fused_lu_pu_kernel<T, true, true>, GETF2_THREADS, smem, &ok);
+      if (err == cudaSuccess && ok)
+        err = fits_one_block(fused_lu_pu_kernel<T, true, false>, GETF2_THREADS, smem, &ok);
     } else {
-      err = fits(fused_lu_pu_kernel<T, false, true>, smem, &ok);
-      if (err == cudaSuccess && ok) err = fits(fused_lu_pu_kernel<T, false, false>, smem, &ok);
+      err = fits_one_block(fused_lu_pu_kernel<T, false, true>, GETF2_THREADS, smem, &ok);
+      if (err == cudaSuccess && ok)
+        err = fits_one_block(fused_lu_pu_kernel<T, false, false>, GETF2_THREADS, smem, &ok);
     }
     if (err != cudaSuccess) return err;
     if (!ok) continue;
@@ -497,7 +479,8 @@ static cudaError_t launch_lu_pu(int64_t b, int64_t m, int64_t bn, const void* l1
 template <typename T>
 static bool chol_smem_route(int64_t bn) {
   int sms = 0, optin = 0;
-  return card(&sms, &optin) == cudaSuccess && chol_pu_smem<T>(bn) <= static_cast<size_t>(optin);
+  return panel_card(&sms, &optin) == cudaSuccess &&
+         chol_pu_smem<T>(bn) <= static_cast<size_t>(optin);
 }
 
 template <typename T>

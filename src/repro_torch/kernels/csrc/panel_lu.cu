@@ -72,28 +72,6 @@ panel_lu_kernel(int64_t m, int64_t nb64, T* a, int64_t lda, int32_t* piv, unsign
   if (RESIDENT) move_rows<T, false>(res, a + r0 * lda, lda, n, nb);
 }
 
-static cudaError_t card(int* sms, int* optin) {
-  int dev = 0, coop = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return err;
-}
-
-// Whether `kernel` runs at least one block an SM with `smem` bytes.
-template <typename Kernel>
-static cudaError_t fits(Kernel kernel, size_t smem, bool* ok) {
-  int per_sm = 0;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, GETF2_THREADS, smem);
-  *ok = err == cudaSuccess && per_sm >= 1;
-  return err;
-}
-
 // How an m x nb panel runs: out = {blocks, resident (1) or streamed (0),
 // rows a block (chunk), dynamic shared memory bytes, workspace bytes,
 // threads a block}.
@@ -101,7 +79,7 @@ template <typename T>
 static cudaError_t lu_plan(int64_t m, int64_t nb, int64_t* out) {
   if (m <= 0 || nb <= 0) return cudaErrorInvalidValue;
   int sms = 0, optin = 0;
-  cudaError_t err = card(&sms, &optin);
+  cudaError_t err = panel_card(&sms, &optin);
   if (err != cudaSuccess) return err;
   int64_t g = (m + GETF2_MIN_ROWS - 1) / GETF2_MIN_ROWS;
   g = g < sms ? g : sms;
@@ -110,10 +88,11 @@ static cudaError_t lu_plan(int64_t m, int64_t nb, int64_t* out) {
   const size_t scratch = getf2_scratch<T>(nb);
   const size_t whole = scratch + static_cast<size_t>(chunk * nb) * sizeof(T);
   bool resident = whole <= static_cast<size_t>(optin);
-  if (resident) err = fits(panel_lu_kernel<T, true>, whole, &resident);
+  if (resident) err = fits_one_block(panel_lu_kernel<T, true>, GETF2_THREADS, whole, &resident);
   if (err != cudaSuccess) return err;
   bool streamed = true;
-  if (!resident) err = fits(panel_lu_kernel<T, false>, scratch, &streamed);
+  if (!resident)
+    err = fits_one_block(panel_lu_kernel<T, false>, GETF2_THREADS, scratch, &streamed);
   if (err != cudaSuccess) return err;
   if (!streamed) return cudaErrorInvalidConfiguration;
   out[0] = g;

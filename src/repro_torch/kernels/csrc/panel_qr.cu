@@ -76,8 +76,7 @@
 
 constexpr int QR_THREADS = 512, QR_WARPS = QR_THREADS / 32;
 constexpr int64_t QR_MIN_ROWS = 32;  // rows a block at least
-constexpr int QR_MAX_BLOCKS = 256;   // so a lane sums at most 8 block partials
-constexpr int LANE_PARTIALS = QR_MAX_BLOCKS / 32;
+constexpr int QR_MAX_BLOCKS = PANEL_MAX_BLOCKS;  // so a lane sums at most 8 block partials
 constexpr int T_GROUP = 256;         // columns of a row of T a warp holds at once
 constexpr int ROW_SLOTS = T_GROUP / 32;
 constexpr int GRAM_ROWS = 8;         // a warp's Gram tile: 8 rows by 128 columns
@@ -130,27 +129,6 @@ struct Rows {
 
 __device__ __forceinline__ int clamp_to(int64_t x, int lo, int hi) {
   return static_cast<int>(x < lo ? lo : (x > hi ? hi : x));
-}
-
-// Sum of x over the warp, the same bits in every lane.
-template <typename T>
-__device__ __forceinline__ T warp_sum(T x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Lane `lane`'s share of the G block partials at src[g * stride], g =
-// lane, lane+32, ..., in turn.
-template <typename T>
-__device__ __forceinline__ T lane_partials(const T* src, int64_t stride, int G, int lane) {
-  T acc = T(0);
-#pragma unroll
-  for (int k = 0; k < LANE_PARTIALS; ++k) {
-    const int g = lane + 32 * k;
-    if (g < G) acc += __ldcg(src + g * stride);
-  }
-  return acc;
 }
 
 // The reflector of column j, the same in every block.

@@ -2,10 +2,15 @@
 
 Kernel: ``csrc/panel_qrcp.cu`` (CUDA C++ for sm_90a), replacing the TPU
 kernel ``repro/kernels/panel_qrcp.py::qrcp_panel``.  The source note there
-says what bounds it on an H100 (the per-step pass over the block: the TPU
-kept the block in VMEM, and a 512 MiB block cannot stay on this card's
-chip) and how its design answers that: a cooperative grid over the block's
-rows, three grid-wide barriers per step, deterministic reductions.
+says what bounds it on an H100 (the global path's per-step pass over a
+block no on-chip memory holds; a ``qrcp_local`` window's chain of
+dependent steps) and how its design answers that: a cooperative grid of at
+most one block an SM over the block's rows, each block's rows kept in
+shared memory where they fit (the ``resident`` route, e.g. the 16384 × 128
+window) else ``streamed`` from device memory (the 16384 × 4096 global
+block), the columns owned by the first blocks, two grid barriers a step,
+every cross-block sum a warp's in a fixed order, so a block gives the same
+bits and the same pivots on every run.
 
 :func:`qrcp_panel` ``(block, steps) -> (block, v, f, tau, piv)`` — the
 reference's contract (``repro.kernels.panels.qrcp_panel``), with the block
@@ -16,6 +21,12 @@ tensor), so the trailing update's ``Fᵀ`` operand has the unit stride the
 GEMM kernel needs without a copy; ``piv`` holds panel-relative int32
 column interchanges.  Global QRCP hands it the whole trailing block,
 ``qrcp_local`` the bare ``steps``-column window — the same entry.
+:func:`plan` shows how a shape runs: the route, the grid, the rows a
+block, the owner blocks, the workspace and ``chain``, the longest chain of
+terms one element's value is summed through in a step (the ``c`` of the
+kernel's 4·c·eps bound against the plain version); a shape whose shared
+memory cannot fit (more than about 4700 steps in f64) is refused with a
+ValueError before any launch.
 
 The plain PyTorch version :func:`qrcp_panel_plain` is the reference's
 sweep (``repro/kernels/panels.py::_qrcp_sweep``) as a loop of PyTorch ops:
@@ -29,19 +40,24 @@ plain version; on CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional
 
 import torch
 
 from repro_torch.core.qr import _reflector
 from repro_torch.kernels import _build
 
-__all__ = ["qrcp_panel", "qrcp_panel_plain"]
+__all__ = ["qrcp_panel", "qrcp_panel_plain", "plan"]
 
 _LIB = "panel_qrcp"
-_GRID_ARGS = [_build.c_i64, _build.c_i64, ctypes.POINTER(ctypes.c_int)]
+_PLAN_ARGS = [_build.c_i64, _build.c_i64, _build.c_i64,
+              ctypes.POINTER(_build.c_i64)]
 _ARGS = [_build.c_i64, _build.c_i64, _build.c_i64, _build.c_ptr,
          _build.c_i64, _build.c_ptr, _build.c_ptr, _build.c_ptr,
-         _build.c_ptr, ctypes.c_int, _build.c_ptr, _build.c_ptr]
+         _build.c_ptr, ctypes.c_int, ctypes.c_int, _build.c_i64,
+         ctypes.c_int, ctypes.c_int, _build.c_ptr, _build.c_ptr]
+_THREADS, _GROUPS = 512, 16   # threads a block; row groups a column sum at most
 
 
 def _outputs(block: torch.Tensor, steps: int):
@@ -85,13 +101,64 @@ def qrcp_panel_plain(block: torch.Tensor, steps: int):
     return block, v, ft.mT, tau, piv
 
 
-def _grid(sfx: str, r: int, steps: int) -> int:
-    """The cooperative grid the kernel takes for ``r`` rows."""
-    grid = ctypes.c_int(0)
-    err = _build.function(_LIB, f"repro_qrcp_panel_grid_{sfx}", _GRID_ARGS)(
-        r, steps, ctypes.byref(grid))
-    _build.check_launch(_LIB, err, "qrcp_panel grid query")
-    return grid.value
+def _tree(terms: int, lanes: int) -> int:
+    """Shuffle steps of a butterfly over ``lanes`` lanes that add a term:
+    lanes beyond ``terms`` hold zeros, whose additions are exact."""
+    return max(min(terms, lanes) - 1, 0).bit_length()
+
+
+def _chain(grid: int, chunk: int, c: int, steps: int, lg: int) -> int:
+    """Longest chain of terms one element's value is summed through in a
+    step: column j brought current (up to ``steps − 1`` terms over 2^lg
+    lanes, the butterfly, the subtraction), the block's column sum
+    (⌈chunk/g⌉ rows a row group, then the groups; g = 512 / min(c, 512),
+    at most 16), the cross-block sum (⌈G/32⌉ block partials a lane, the
+    butterfly), w (two operations) and the F recurrence (up to
+    ``steps − 1`` terms over 32 lanes, the butterfly, two operations)."""
+    t = steps - 1
+    groups = min(_THREADS // min(max(c, 1), _THREADS), _GROUPS)
+    bring = -(-t // (1 << lg)) + _tree(t, 1 << lg) + 1
+    rows = -(-chunk // groups) + min(groups, chunk) - 1
+    cross = -(-grid // 32) + _tree(grid, 32)
+    return bring + rows + cross + 2 + (-(-t // 32) + _tree(t, 32) + 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(r: int, c: int, steps: int, dtype: torch.dtype, index: int) -> dict:
+    out = (_build.c_i64 * 10)()
+    fn = _build.function(_LIB, f"repro_qrcp_panel_plan_{_build.SUFFIX[dtype]}",
+                         _PLAN_ARGS)
+    with torch.cuda.device(index):
+        err = fn(r, c, steps, out)
+    if err and 0 < out[8] < steps:
+        raise ValueError(f"panel_qrcp: the kernel takes at most {out[8]} "
+                         f"steps of {dtype} on this card (its shared "
+                         f"memory), got {steps}")
+    if err == _build.NO_FIT:
+        raise ValueError(f"panel_qrcp: {r} x {c} with {steps} steps of "
+                         f"{dtype} runs no block an SM on this card")
+    _build.check_launch(_LIB, err, f"qrcp_panel plan for {r} x {c}, "
+                                   f"{steps} steps")
+    return {"route": "resident" if out[1] else "streamed", "grid": out[0],
+            "chunk": out[2], "smem_bytes": out[3], "workspace_bytes": out[4],
+            "threads": out[5], "owners": out[6], "v_rows_shared": bool(out[9]),
+            "chain": _chain(out[0], out[2], c, steps, out[7])}
+
+
+def plan(r: int, c: int, steps: int, dtype: torch.dtype, *,
+         device: Optional[torch.device] = None) -> dict:
+    """How ``steps`` steps over an ``r × c`` block run on a CUDA device:
+    ``route`` (``resident`` or ``streamed``), ``grid`` blocks of
+    ``threads`` (at most one an SM), rows a block (``chunk``), the blocks
+    that own columns (``owners``), dynamic shared memory a block, whether
+    a streamed block keeps V's rows in it (``v_rows_shared``), workspace
+    bytes, and ``chain``, the c of the 4·c·eps bound.  Builds the library;
+    cached per shape; a ValueError where the steps' shared memory cannot
+    fit."""
+    device = torch.device(device or "cuda")
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return dict(_plan(r, c, steps, dtype, index))
 
 
 def qrcp_panel(block: torch.Tensor, steps: int):
@@ -108,16 +175,15 @@ def qrcp_panel(block: torch.Tensor, steps: int):
     v, ft, tau, piv = _outputs(block, steps)
     if steps == 0:
         return block, v, ft.mT, tau, piv
-    sfx = _build.SUFFIX[dtype]
+    p = _plan(r, c, steps, dtype, device.index)
+    ws = torch.empty(p["workspace_bytes"], dtype=torch.uint8, device=device)
     with _build.device_guard(device):
-        g = _grid(sfx, r, steps)
-        # norms (2c), partials of Bᵀv (g·c), of Vᵀv (g·steps), of the norm (g)
-        ws = torch.empty(2 * c + g * c + g * steps + g, dtype=dtype,
-                         device=device)
-        err = _build.function(_LIB, f"repro_qrcp_panel_{sfx}", _ARGS)(
+        err = _build.function(
+            _LIB, f"repro_qrcp_panel_{_build.SUFFIX[dtype]}", _ARGS)(
             r, c, steps, _build.ptr(block), _build.ld(block), _build.ptr(v),
-            _build.ptr(ft), _build.ptr(tau), _build.ptr(piv), g,
-            _build.ptr(ws), _build.stream_of(device))
+            _build.ptr(ft), _build.ptr(tau), _build.ptr(piv), p["grid"],
+            int(p["route"] == "resident"), p["smem_bytes"], p["owners"],
+            int(p["v_rows_shared"]), _build.ptr(ws), _build.stream_of(device))
     _build.check_launch(_LIB, err, "qrcp_panel kernel launch")
     qrcp_panel.launches += 1
     return block, v, ft.mT, tau, piv

@@ -6,12 +6,12 @@ card.  The kernel and its plain version sum the same terms in the same
 order, so they are held to 4·max(k,8)·eps relative, k being the number of
 terms summed per element (the panel bitwise; the fused panel updates
 bitwise against the kernels they replace; the TRSMs and the small LU
-solve bitwise against their chain contract; the QR and QRCP panels, whose
-reductions group differently from their plain versions, within
-4·max(m,nb,8)·eps, pivots equal, and the QR panel also within 4·k·eps, k
-its plan's chain, on both routes; the Hessenberg panel within 4·c·eps, c
-the longest chain of terms it sums for one element; flash attention and
-WKV6 within elementwise bounds of their plain versions run in float64);
+solve bitwise against their chain contract; the QR panel, whose
+reductions group differently from its plain version, within
+4·max(m,nb,8)·eps and within 4·k·eps, k its plan's chain, on both routes;
+the QRCP and Hessenberg panels within 4·c·eps, c their plan's chain, the
+QRCP pivots equal, on both QRCP routes; flash attention and WKV6 within
+elementwise bounds of their plain versions run in float64);
 whole solves keep the reference's 200·max(m,n,8)·eps, and every schedule
 of LU, Cholesky, QR, ``qrcp_local`` and Hessenberg gives bitwise the
 factors of ``mtb``.  Marked ``cuda``;
@@ -59,6 +59,11 @@ def _tol(dtype, m, n):
 
 def _kernel_tol(dtype, k):
     return 4.0 * max(k, 8) * torch.finfo(dtype).eps
+
+
+def _chain_tol(dtype, plan):
+    """4·c·eps, c the longest chain of terms the kernel's plan counts."""
+    return 4.0 * plan["chain"] * torch.finfo(dtype).eps
 
 
 def _scaled_residual(a, x, b):
@@ -884,9 +889,94 @@ def test_qrcp_panel_matches_plain(card, dtype, r, c, steps):
     assert got[0].data_ptr() == block.data_ptr()
     assert torch.equal(got[4], want[4])                    # pivots
     assert got[2].stride() == (1, c)                       # F stored as Fᵀ
-    tol = _kernel_tol(dtype, max(r, c))
+    tol = _chain_tol(dtype, panel_qrcp.plan(r, c, steps, dtype))
     for x, y in zip(got[:4], want[:4]):
         assert _rel(x, y) < tol
+
+
+def _qrcp_checked(block, steps, runs=1):
+    """qrcp_panel on copies of ``block`` ``runs`` times (every run the same
+    bits), its plain version once: (kernel outputs, plain outputs, plan)."""
+    r, c = block.shape
+    plan = panel_qrcp.plan(r, c, steps, block.dtype)
+    want = panel_qrcp.qrcp_panel_plain(block.clone(), steps)
+    outs = [panel_qrcp.qrcp_panel(block.clone(), steps) for _ in range(runs)]
+    for o in outs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(o, outs[0]))
+    got = outs[0]
+    assert torch.equal(got[4], want[4])                    # pivots
+    assert got[2].stride() == (1, c)                       # F stored as Fᵀ
+    tol = _chain_tol(block.dtype, plan)
+    for x, y in zip(got[:4], want[:4]):
+        assert _rel(x, y) < tol
+    return got, want, plan
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("r,c,route", [(16384, 128, "resident"),
+                                       (65536, 128, "streamed"),
+                                       (4096, 2048, "streamed")])
+def test_qrcp_panel_on_both_routes_within_its_chain_bound(card, dtype, r, c,
+                                                          route):
+    """A qrcp_local window whose rows fit the blocks' shared memory, one too
+    tall for it and a wide global-style block, 128 steps: the plan's route,
+    at most one block an SM, three runs with the same bits, pivots equal to
+    the plain version's, every array within 4·c·eps, c the plan's chain."""
+    plan = panel_qrcp.plan(r, c, 128, dtype)
+    assert plan["route"] == route
+    assert plan["grid"] <= torch.cuda.get_device_properties(card) \
+        .multi_processor_count
+    _qrcp_checked(_randn((r, c), dtype, card, 60), 128, runs=3)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("r,c,steps", [(16, 40, 16), (300, 32, 32), (1, 7, 1),
+                                       (7, 1, 1), (33, 33, 33)])
+def test_qrcp_panel_edge_shapes_on_strided_views(card, dtype, r, c, steps):
+    """As many steps as rows (r < c), as columns (c < r), one row, one
+    column and a square block, each a view with a row stride wider than
+    its width, updated in place."""
+    src = _randn((r, c + 3), dtype, card, 61)
+    block = src[:, 2 : 2 + c]
+    ref = block.clone()
+    want = panel_qrcp.qrcp_panel_plain(ref, steps)
+    got = panel_qrcp.qrcp_panel(block, steps)
+    assert got[0].data_ptr() == block.data_ptr()
+    assert torch.equal(got[4], want[4])
+    tol = _chain_tol(dtype, panel_qrcp.plan(r, c, steps, dtype))
+    for x, y in zip(got[:4], want[:4]):
+        assert _rel(x, y) < tol
+    orig = _randn((r, c + 3), dtype, card, 61)
+    assert torch.equal(src[:, :2], orig[:, :2])
+    assert torch.equal(src[:, 2 + c :], orig[:, 2 + c :])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_qrcp_panel_zero_and_tied_columns(card, dtype):
+    """Zero columns tie at norm 0 and go to the first index (tau = 0 for
+    them); two equal columns, the largest, tie and the first is taken."""
+    a = _randn((64, 8), dtype, card, 62)
+    a[:, 4:] = 0.0
+    got, _, _ = _qrcp_checked(a, 8)
+    assert got[4].tolist() == got[4].tolist()[:4] + [4, 5, 6, 7]
+    assert not got[3][4:].any()
+    b = _randn((64, 40), dtype, card, 63)
+    b[:, 3] *= 10.0
+    b[:, 7] = b[:, 3]
+    got, _, _ = _qrcp_checked(b, 16)
+    assert int(got[4][0]) == 3
+
+
+def test_qrcp_plan_refuses_what_cannot_fit_before_any_launch(card):
+    """More steps than a block's shared memory holds the vectors of: a
+    ValueError from the plan and from the wrapper, and no launch."""
+    with pytest.raises(ValueError, match="at most"):
+        panel_qrcp.plan(5000, 5000, 5000, torch.float64)
+    block = torch.zeros((5000, 5000), dtype=torch.float64, device=card)
+    before = panel_qrcp.qrcp_panel.launches
+    with pytest.raises(ValueError, match="at most"):
+        panel_qrcp.qrcp_panel(block, 5000)
+    assert panel_qrcp.qrcp_panel.launches == before
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -929,14 +1019,6 @@ def test_gels_on_the_card(card, dtype, pivot, local):
     assert _rel(x.cpu(), ref) < _tol(dtype, m, n)
 
 
-def _hessenberg_chain(n, k, bk, grid):
-    """The longest chain of terms the Hessenberg panel kernel sums for one
-    element: a GEMV row (a lane's share of the n − k columns, then five
-    shuffle steps) or a cross-block sum (a block's rows, then the G
-    partials), followed by the 2·bk terms of the right and left updates."""
-    return max(-(-(n - k) // 32) + 5, -(-n // grid) + grid) + 2 * bk
-
-
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("k", [0, 200, 512 - 128])
 @pytest.mark.parametrize("bk", [128, 40])
@@ -950,15 +1032,72 @@ def test_hessenberg_panel_matches_plain(card, dtype, k, bk):
     got = panel_hessenberg.hessenberg_panel(a, k, bk)
     assert panel_hessenberg.hessenberg_panel.launches == before + 1
     assert got[0].data_ptr() == a.data_ptr()
-    g = panel_hessenberg._grid(
-        "f64" if dtype == torch.float64 else "f32", n, bk)
-    tol = _kernel_tol(dtype, _hessenberg_chain(n, k, bk, g))
+    tol = _chain_tol(dtype, panel_hessenberg.plan(n, k, bk, dtype))
     for x, y in zip(got, want):
         assert _rel(x, y) < tol
     if k + bk >= n - 1:                    # the last two columns: tau = 0
         assert float(got[4][n - 2 - k]) == 0.0
     again = panel_hessenberg.hessenberg_panel(orig, k, bk)   # ld = n
     assert all(torch.equal(x, y) for x, y in zip(again, got))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", [0, 2048 - 128])
+def test_hessenberg_panel_in_l2_is_deterministic(card, dtype, k):
+    """n 2048 (the matrix fits L2; every SM busy): three runs give the same
+    bits, within 4·c·eps of the plain version, c the plan's chain; the
+    last panel's two last columns get tau = 0."""
+    n, bk = 2048, 128
+    plan = panel_hessenberg.plan(n, k, bk, dtype)
+    assert plan["grid"] == min(
+        torch.cuda.get_device_properties(card).multi_processor_count, n // 8)
+    a0 = _randn((n, n), dtype, card, 64)
+    want = panel_hessenberg.hessenberg_panel_plain(a0.clone(), k, bk)
+    outs = [panel_hessenberg.hessenberg_panel(a0.clone(), k, bk)
+            for _ in range(3)]
+    for o in outs[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(o, outs[0]))
+    tol = _chain_tol(dtype, plan)
+    for x, y in zip(outs[0], want):
+        assert _rel(x, y) < tol
+    if k + bk >= n - 1:
+        assert not outs[0][4][n - 2 - k:].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,k,bk", [(5, 0, 5), (3, 1, 2), (1, 0, 1),
+                                    (40, 30, 10), (1024, 0, 384)])
+def test_hessenberg_panel_edge_shapes_on_strided_views(card, dtype, n, k, bk):
+    """Tiny matrices, panels that reach the last columns (no rows to
+    reduce: tau = 0, v = 0) and a panel too wide for T to stay in a
+    block's shared memory (1024, 384: T in the blocks' workspace), each on
+    a view with a wider row stride, updated in place."""
+    src = _randn((n, n + 4), dtype, card, 65)
+    a = src[:, 1 : 1 + n]
+    ref = a.clone()
+    want = panel_hessenberg.hessenberg_panel_plain(ref, k, bk)
+    got = panel_hessenberg.hessenberg_panel(a, k, bk)
+    assert got[0].data_ptr() == a.data_ptr()
+    plan = panel_hessenberg.plan(n, k, bk, dtype)
+    assert plan["shared"]["t"] == (bk < 384)
+    tol = _chain_tol(dtype, plan)
+    for x, y in zip(got, want):
+        assert _rel(x, y) < tol
+    for kj in range(max(k, n - 2), k + bk):
+        assert float(got[4][kj - k]) == 0.0 and not got[1][:, kj - k].any()
+
+
+def test_hessenberg_plan_refuses_what_cannot_fit_before_any_launch(card):
+    """A panel wider than a block's shared memory holds the vectors of: a
+    ValueError from the plan and from the wrapper, and no launch."""
+    n = 9600
+    with pytest.raises(ValueError, match="at most"):
+        panel_hessenberg.plan(n, 0, n, torch.float64)
+    a = torch.empty((n, n), dtype=torch.float64, device=card)
+    before = panel_hessenberg.hessenberg_panel.launches
+    with pytest.raises(ValueError, match="at most"):
+        panel_hessenberg.hessenberg_panel(a, 0, n)
+    assert panel_hessenberg.hessenberg_panel.launches == before
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -1,0 +1,140 @@
+"""Time the hand-written panel kernels of one source tree on the card.
+
+Runs, float64 and float32, from the ``repro_torch`` package under ``--src``
+(by default this repository's ``src``), so that two trees can be timed in
+turns on one card:
+
+* ``lu``: ``lu_panel`` on the main path's 8192 x 128 panel and
+  ``fused_lu_panel_update`` on its first PU (L11 128 x 128, an 8064 x 128
+  panel);
+* ``qrcp``: ``qrcp_panel`` on a ``qrcp_local`` window (16384 x 128) and on
+  the global path's first block (16384 x 4096), 128 steps each;
+* ``hessenberg``: ``hessenberg_panel`` on ``gehrd``'s first panel at
+  n 8192 (k 0), its middle one (k 4096) and the first at n 2048, 128
+  columns each.
+
+    python3 tools/panel_timing.py                       # this tree, all
+    python3 tools/panel_timing.py --src OTHER/src       # another checkout
+    python3 tools/panel_timing.py --only qrcp,hessenberg
+
+The kernels work in place, so each run starts from a fresh copy of its
+operands and the copy's own time is subtracted.  Prints the card's name
+and power limit, then one JSON object: for each dtype and kernel shape,
+the median card ms on a busy card (``ms``: one call queued behind a sleep
+kernel, CUDA events) and of one call from an idle card (``call_ms``: host
+work included), and the ``src`` path it ran.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+N, BLOCK, SEED = 8192, 128, 0
+QR_M, QR_N, HESS_SMALL = 16384, 4096, 2048
+
+
+def time_ms(fn, reps: int, busy: bool) -> float:
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        if busy:
+            torch.cuda._sleep(5_000_000)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        out.append(e0.elapsed_time(e1))
+    return statistics.median(out)
+
+
+def both(run, copy, reps=20) -> dict:
+    return {"ms": time_ms(run, reps, True) - time_ms(copy, reps, True),
+            "call_ms": time_ms(run, reps, False) - time_ms(copy, reps, False)}
+
+
+def in_place(kernel, operand0: torch.Tensor, reps: int) -> dict:
+    """``both`` of ``kernel(work)`` on a fresh copy of ``operand0``."""
+    work = torch.empty_like(operand0)
+    row = both(lambda: kernel(work.copy_(operand0)),
+               lambda: work.copy_(operand0), reps)
+    del work
+    return row
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
+                                         / "src"))
+    ap.add_argument("--only", default="lu,qrcp,hessenberg",
+                    help="comma-separated groups: lu, qrcp, hessenberg")
+    args = ap.parse_args()
+    groups = set(args.only.split(","))
+    if not torch.cuda.is_available():
+        print("panel_timing: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, args.src)
+    from repro_torch.kernels import _build, panel_hessenberg, panel_lu, \
+        panel_qrcp
+    from repro_torch.kernels import fused_panel_update as fpu
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    _build.build_all()
+    dev = torch.device("cuda")
+    res = {"src": args.src}
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+        row = {}
+        if "lu" in groups:
+            row["lu_panel"] = in_place(panel_lu.lu_panel, randn(N, BLOCK), 20)
+            m = N - BLOCK
+            l11 = torch.linalg.lu_factor(randn(BLOCK, BLOCK)).LU.contiguous()
+            l21, a1l0, a2l0 = randn(m, BLOCK), randn(BLOCK, BLOCK), \
+                randn(m, BLOCK)
+            a1l, a2l = torch.empty_like(a1l0), torch.empty_like(a2l0)
+
+            def fresh():
+                a1l.copy_(a1l0)
+                a2l.copy_(a2l0)
+
+            def fused():
+                fresh()
+                fpu.fused_lu_panel_update(l11, l21, a1l, a2l)
+
+            row["fused_lu_panel_update"] = both(fused, fresh)
+            del l11, l21, a1l0, a2l0, a1l, a2l
+        if "qrcp" in groups:
+            for key, cols, reps in (("qrcp_panel_window", BLOCK, 20),
+                                    ("qrcp_panel_global", QR_N, 10)):
+                row[key] = in_place(
+                    lambda blk: panel_qrcp.qrcp_panel(blk, BLOCK),
+                    randn(QR_M, cols), reps)
+        if "hessenberg" in groups:
+            for key, n, k in (("hessenberg_panel_n8192_k0", N, 0),
+                              ("hessenberg_panel_n8192_k4096", N, N // 2),
+                              ("hessenberg_panel_n2048_k0", HESS_SMALL, 0)):
+                row[key] = in_place(
+                    lambda a, k=k: panel_hessenberg.hessenberg_panel(
+                        a, k, BLOCK), randn(n, n), 10 if n == N else 20)
+        res[str(dtype).replace("torch.", "")] = row
+        torch.cuda.empty_cache()
+    print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
