@@ -37,9 +37,14 @@
    streamed), route, grid and rows a block recorded, timed on both
    metrics beside ``torch.linalg.lu_factor``.  The fused panel updates are
    held bitwise to the composed kernels, pivots included, and timed on
-   both metrics beside them.  The TRSMs (384 x 7808 and its right mode),
-   the GETF2 panel (8192 x 384) and the fused panel updates (first PU of
-   a block-384 factor) are run again at block 384, wider than 256; the QR,
+   both metrics beside them; the Cholesky one (and the Cholesky panel
+   kernel, the same kernel with no update terms, at 8192 x 128) also
+   bitwise to the panel composed of PyTorch ops (``cholesky_unblocked``)
+   and the right TRSM kernel, timed beside it, with its plan printed.  The
+   TRSMs (384 x 7808 and its right mode), the GETF2 panel (8192 x 384),
+   the fused panel updates (first PU of a block-384 factor) and the
+   Cholesky panel (8192 x 384) are run again at block 384, wider than
+   256; the QR,
    QRCP and Hessenberg panels within 4·k·eps of their plain versions, k
    the longest chain of terms the kernel sums for one element (its plan's
    ``chain``), QRCP pivots equal.  The three are deterministic; the QR
@@ -59,9 +64,12 @@
 5. second path: ``posv`` (Cholesky, then the solves) on a symmetric
    positive-definite input, under ``mtb``/``la``/``la2``/``la_mb`` at
    n = 8192 and ``rtm`` at n = 2048: the same checks and times, against
-   ``torch.linalg.cholesky`` + ``torch.cholesky_solve``, and the time of
-   one PyTorch-op ``cholesky_unblocked`` of a 128 x 128 block; block 384
-   as for ``gesv``.
+   ``torch.linalg.cholesky`` + ``torch.cholesky_solve``; ``mtb`` once more
+   with the panel composed of PyTorch ops and the right TRSM kernel
+   (``panel_fn=``), bitwise the panel kernel's factor and timed beside it;
+   the time of one PyTorch-op ``cholesky_unblocked`` of a 128 x 128 block
+   beside the panel kernel's on a 8192 x 128 panel; block 384 as for
+   ``gesv``.
 6. ``gels`` (Householder QR, then the least-squares solve), m = 16384,
    n = 4096, 16 right-hand sides, under ``mtb``/``la``/``la2``/``la_mb``,
    ``rtm`` at 4096 x 1024 and a wide 1024 x 2048 factor: LAPACK's
@@ -244,7 +252,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core.backend import no_tf32
-    from repro_torch.core.cholesky import cholesky_panel, cholesky_unblocked
+    from repro_torch.core.cholesky import cholesky_blocked, cholesky_unblocked
+    from repro_torch.core.cholesky import cholesky_panel as op_cholesky_panel
     from repro_torch.core import qr
     import numpy as np
 
@@ -609,14 +618,16 @@ def main() -> int:
         del l_w
 
         def fused_row(name, fused, plain, composed, ops_in, outs, flops,
-                      nbytes, tol_k, shape, plan=None):
+                      nbytes, tol_k, shape, plan=None, op_composed=None):
             """A fused panel update on fresh copies of its in-place operands
             ``outs`` (indices into ``ops_in``): bitwise against the composed
             kernels it replaces (pivots too), within 4·k·eps of its plain
             version (which rounds each product where the kernels use FMA),
             timed with the copies' own time subtracted: ms on a busy card
             (queued_ms), call_ms one call from an idle card, the composed
-            kernels on both metrics."""
+            kernels on both metrics.  ``op_composed``: a second composition
+            (the Cholesky panel as PyTorch ops and the right TRSM kernel),
+            held bitwise too and timed on a busy card."""
             def fresh():
                 args = list(ops_in)
                 for i in outs:
@@ -650,7 +661,17 @@ def main() -> int:
                 library_ms=None, bound=bound(flops, nbytes))
             if plan is not None:
                 row.update(route=plan["route"], grid=plan["grid"],
-                           rows_per_block=plan["chunk"])
+                           rows_per_block=plan["chunk"], plan=plan)
+            if op_composed is not None:
+                ops_out = [t.clone() for t in
+                           _as_tuple(op_composed(*fresh()))]
+                sync()
+                check(all(torch.equal(x, y) for x, y in zip(got, ops_out)),
+                      f"{name} {dtype}: not bitwise equal to the PyTorch-op "
+                      "Cholesky panel")
+                row.update(bitwise_equal_to_pytorch_ops=True,
+                           pytorch_ops_ms=queued_ms(
+                               lambda: op_composed(*fresh()), 5) - copy_busy)
             return row
 
         # the fused panel updates at the first PU of a factor with block bb
@@ -674,6 +695,9 @@ def main() -> int:
                 (bb * (bb + 1) // 2 + mm * bb + 2 * bb * bb + 2 * mm * bb) * size
                 + 4 * bb, 2 * bb, [mm, bb, bb], plan=fpu.plan(bb, mm, bb, dtype))
 
+        # the Cholesky PU composed: the GEMM kernel, then the panel (the
+        # panel kernel entry; and, held bitwise too, the PyTorch-op panel
+        # with the right TRSM kernel, the rounding the reference specifies)
         def fused_chol_row(bb):
             mm = N - bb
             l21 = 0.1 * randn(mm, bb)
@@ -682,17 +706,45 @@ def main() -> int:
 
             def composed_chol(lrow, l21, panel):
                 ops.update(panel, l21, lrow.mT.contiguous())
-                return cholesky_panel(panel, bb, "cuda")
+                return ops.cholesky_panel(panel, bb, "cuda")
+
+            def op_composed_chol(lrow, l21, panel):
+                ops.update(panel, l21, lrow.mT.contiguous())
+                return op_cholesky_panel(panel, bb, "cuda")
 
             return fused_row(
                 "fused_cholesky_panel_update", fpu.fused_cholesky_panel_update,
                 fpu.fused_cholesky_panel_update_plain, composed_chol,
                 (l21[:bb], l21, panel_c), (2,),
                 2.0 * mm * bb * bb + bb ** 3 / 3.0 + float(mm - bb) * bb * bb,
-                (bb * bb + 2 * mm * bb + mm * bb) * size, 2 * bb, [mm, bb, bb])
+                (bb * bb + 2 * mm * bb + mm * bb) * size, 2 * bb, [mm, bb, bb],
+                plan=fpu.cholesky_plan(mm, bb, dtype, b=bb),
+                op_composed=op_composed_chol)
+
+        # the Cholesky panel entry (the same kernel with no update terms) on
+        # the main path's first panel, N x bb: bitwise the PyTorch-op panel
+        # (cholesky_unblocked, then the right TRSM kernel), which is also its
+        # composed time; no one PyTorch call computes it.  Its inputs come
+        # from a generator of their own, so the other rows' inputs do not
+        # depend on it.
+        pgen = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+        def chol_panel_row(bb):
+            panel0 = 0.1 * torch.randn((N, bb), generator=pgen, device=dev,
+                                       dtype=dtype)
+            g = torch.randn((bb, bb), generator=pgen, device=dev, dtype=dtype)
+            panel0[:bb] = g @ g.mT / bb + torch.eye(bb, dtype=dtype,
+                                                     device=dev)
+            return fused_row(
+                "cholesky_panel", lambda p: fpu.cholesky_panel(p, bb),
+                lambda p: fpu.cholesky_panel_plain(p, bb),
+                lambda p: op_cholesky_panel(p, bb, "cuda"), (panel0,), (0,),
+                bb ** 3 / 3.0 + float(N - bb) * bb * bb, 2 * N * bb * size,
+                bb, [N, bb], plan=fpu.cholesky_plan(N, bb, dtype))
 
         for key, row_of in (("fused_lu_panel_update", fused_lu_row),
-                            ("fused_cholesky_panel_update", fused_chol_row)):
+                            ("fused_cholesky_panel_update", fused_chol_row),
+                            ("cholesky_panel", chol_panel_row)):
             res[key] = row_of(BLOCK)
             res[key]["wide"] = row_of(WIDE_BLOCK)
 
@@ -1098,7 +1150,15 @@ def main() -> int:
     del small, a3, b3
 
     # ---- 5. posv: Cholesky on a symmetric positive-definite input ----------
+    def bank(into):
+        """Add the launches since the last reset to ``into``; reset."""
+        for k, v in ops.launches().items():
+            into[k] = into.get(k, 0) + v
+        ops.reset_launches()
+
     chol_flops = N ** 3 / 3.0
+    counts_posv = {}      # the posv path's launches
+    counts_op_panel = {}  # mtb with the PyTorch-op panel: a path of its own
     ops.reset_launches()
     for dtype in (torch.float64, torch.float32):
         gen = torch.Generator(device=dev).manual_seed(SEED + 2)
@@ -1131,8 +1191,28 @@ def main() -> int:
                   "scaled_residual": res, "bitwise_equal_to_mtb": True})
         del fac, x
 
-        # a block wider than 256 (the fused PU's diagonal block in device
-        # memory past shared memory): every variant bitwise mtb
+        # mtb with the PF composed of PyTorch ops and the right TRSM kernel
+        # (the default before the panel kernel; a user's panel_fn=): the
+        # same factor, and its time beside the kernel's in this run; its
+        # launches counted in a window of their own
+        bank(counts_posv)
+        sync()
+        t0 = time.perf_counter()
+        l_ops = cholesky_blocked(a, BLOCK, panel_fn=op_cholesky_panel)
+        sync()
+        t1 = time.perf_counter()
+        bank(counts_op_panel)
+        check(torch.equal(l_ops, base.l), f"posv mtb {dtype}: the PyTorch-op "
+              "panel's factor differs from the panel kernel's")
+        emit({"phase": "posv", "dtype": str(dtype), "n": N, "block": BLOCK,
+              "variant": "mtb", "panel": "pytorch_ops",
+              "factor_ms": (t1 - t0) * 1e3,
+              "factor_gflops": chol_flops / (t1 - t0) / 1e9,
+              "bitwise_equal_to_mtb": True})
+        del l_ops
+
+        # a block wider than 256 (POTF2 in device memory past 128
+        # columns): every variant bitwise mtb
         wide = None
         for variant in ("mtb", "rtm", "la", "la2", "la_mb"):
             sync()
@@ -1174,12 +1254,25 @@ def main() -> int:
 
         # one PyTorch-op cholesky_unblocked of a diagonal block: the part of
         # the composed Cholesky PF that runs as PyTorch ops, once per panel
+        # (these timing launches are not the path's)
+        bank(counts_posv)
         blk = a[:BLOCK, :BLOCK].clone()
         unb_ms = time_ms(lambda: cholesky_unblocked(blk.copy_(a[:BLOCK,
                                                                  :BLOCK])), 5)
+        # and the panel kernel on the factor's first panel, which replaces it
+        # and the right TRSM (one call from an idle card, the copy's time
+        # subtracted)
+        col0 = a[:, :BLOCK].contiguous()
+        work = torch.empty_like(col0)
+        entry_ms = (time_ms(lambda: ops.cholesky_panel(work.copy_(col0), BLOCK),
+                            10) - time_ms(lambda: work.copy_(col0), 10))
         emit({"phase": "cholesky_unblocked", "dtype": str(dtype),
               "block": BLOCK, "ms_per_call": unb_ms, "calls_per_factor": npanels,
-              "ms_per_factor": unb_ms * npanels})
+              "ms_per_factor": unb_ms * npanels,
+              "panel_kernel_ms_per_call": entry_ms,
+              "panel_kernel_shape": [N, BLOCK]})
+        del blk, col0, work
+        ops.reset_launches()
         for variant in ("la", "la_mb"):
             emit_trace("posv", variant, dtype,
                        lambda: cholesky_factor(a, BLOCK, variant=variant))
@@ -1200,11 +1293,13 @@ def main() -> int:
               "block": BLOCK, "variant": "rtm", "factor_ms": (t1 - t0) * 1e3,
               "scaled_residual": res, "bitwise_equal_to_mtb": True})
         del a, b, a2, b2, f_mtb, f_rtm, base
-    counts_posv = ops.launches()
-    for name in ("gemm_accum", "trsm", "trsm_right_lower_t",
+    bank(counts_posv)
+    for name in ("gemm_accum", "trsm", "cholesky_panel",
                  "fused_cholesky_panel_update"):
         check(counts_posv[name] > 0, f"kernel {name} was not launched on the "
               "posv path")
+    check(counts_op_panel["trsm_right_lower_t"] > 0, "kernel "
+          "trsm_right_lower_t was not launched on posv's PyTorch-op panel path")
     counts = {k: counts[k] + counts_posv[k] for k in counts}
 
     # ---- 6. gels: Householder QR, then the least-squares solve -------------
@@ -1545,7 +1640,9 @@ def main() -> int:
     counts = {k: counts[k] + counts_cond[k] for k in counts}
     for name, count in counts.items():
         if name not in SERVING_KERNELS:   # checked on the serving paths
-            check(count > 0,
+            # trsm_right_lower_t is on no default path: its own (posv mtb
+            # with the PyTorch-op panel) was read in a window of its own
+            check(count > 0 or counts_op_panel.get(name, 0) > 0,
                   f"kernel {name} was not launched on the main paths")
 
     # ---- 10. flash attention against its plain version ---------------------
@@ -2059,6 +2156,7 @@ def main() -> int:
                "trsm_right_lower_t": "trsm.cu",
                "fused_lu_panel_update": "fused_pu.cu",
                "fused_cholesky_panel_update": "fused_pu.cu",
+               "cholesky_panel": "fused_pu.cu",
                "qr_panel": "panel_qr.cu", "larft": "panel_qr.cu",
                "qrcp_panel": "panel_qrcp.cu",
                "hessenberg_panel": "panel_hessenberg.cu"}
@@ -2071,6 +2169,8 @@ def main() -> int:
                     "src/repro/kernels/fused_panel_update.py:112",
                 "fused_cholesky_panel_update":
                     "src/repro/kernels/fused_panel_update.py:194",
+                # no pallas_call: the reference traces this panel as jnp ops
+                "cholesky_panel": "src/repro/core/cholesky.py:50",
                 "qr_panel": "src/repro/kernels/panel_qr.py:31",
                 "larft": "src/repro/kernels/panel_qr.py:31",
                 "qrcp_panel": "src/repro/kernels/panel_qrcp.py:43",
@@ -2084,7 +2184,7 @@ def main() -> int:
                "bound_by": r["bound"][1], "library_ms": r["library_ms"]}
         for key in ("composed_ms", "composed_call_ms",
                     "bitwise_equal_to_chain", "chain_ms", "call_ms",
-                    "library_call_ms"):
+                    "library_call_ms", "pytorch_ops_ms"):
             if key in r:
                 out[key] = r[key]
         for key in ("window", "k_half", "n_rtm", "streamed", "wide"):
@@ -2106,6 +2206,10 @@ def main() -> int:
             "source": f"src/repro_torch/kernels/csrc/{sources[name]}",
             "replaces": replaces[name], "launches": counts[name],
             **at_shape(name)})
+        if not counts[name] and counts_op_panel.get(name):
+            # on no default path: the launches of the path that runs it
+            kernels[-1].update(launches=counts_op_panel[name],
+                               launch_path="posv mtb, PyTorch-op panel")
         if name == "gemm_accum":   # beta = 0, and the gels paths' products
             kernels[-1]["shapes"] = {key: at_shape(key) for key in (
                 "gemm", "gemm_gels_vtc", "gemm_gels_vtc_pu", "gemm_gels_vtb",

@@ -62,8 +62,12 @@ def cholesky_unblocked(a: torch.Tensor) -> torch.Tensor:
 
 
 def cholesky_panel(panel: torch.Tensor, nb: int, backend="cuda") -> torch.Tensor:
-    """PF for Cholesky: factor the (m × nb) panel (diagonal block and the
-    rows below it) in place; returns ``panel``."""
+    """PF for Cholesky composed of PyTorch ops and the backend's TRSM:
+    factor the (m × nb) panel (diagonal block and the rows below it) in
+    place; returns ``panel``.  The engine takes it where the backend has no
+    Cholesky panel kernel (``backend="torch"``); the ``"cuda"`` backend's
+    is ``kernels.fused_panel_update.cholesky_panel``, which rounds as this
+    composition does on the card."""
     l11 = cholesky_unblocked(panel[:nb])
     if panel.shape[0] > nb:
         l21 = panel[nb:]

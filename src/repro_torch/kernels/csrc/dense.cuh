@@ -72,10 +72,6 @@ __device__ void solve_vector(int64_t b, const T* t, int64_t ldt, T* x, int64_t x
 // ---------------------------------------------------------------------------
 // Cooperative grids over the rows of a panel.
 // ---------------------------------------------------------------------------
-constexpr int PANEL_THREADS = 256;
-constexpr int64_t ROWS_PER_BLOCK = 32;
-constexpr int MAX_BLOCKS_PER_SM = 2;
-
 // The rows [r0, r1) that block `blk` of `G` owns in an m-row panel.
 __device__ __forceinline__ void owned_rows(int64_t m, int G, int blk, int64_t* chunk,
                                            int64_t* r0, int64_t* r1) {
@@ -84,31 +80,9 @@ __device__ __forceinline__ void owned_rows(int64_t m, int G, int blk, int64_t* c
   *r1 = min(m, *r0 + *chunk);
 }
 
-// Blocks of a cooperative grid over m rows: enough for ROWS_PER_BLOCK rows
-// each, at most MAX_BLOCKS_PER_SM per SM and never more than can be
-// resident at once with `smem` bytes of dynamic shared memory each.
-template <typename Kernel>
-static cudaError_t cooperative_grid(Kernel kernel, size_t smem, int64_t m, int* grid) {
-  int dev = 0, sms = 0, per_sm = 0, coop = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = allow_smem(kernel, smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, PANEL_THREADS, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int64_t want = (m + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  const int64_t cap = static_cast<int64_t>(sms) * (per_sm < MAX_BLOCKS_PER_SM ? per_sm : MAX_BLOCKS_PER_SM);
-  const int64_t g = want < cap ? want : cap;
-  *grid = static_cast<int>(g > 1 ? g : 1);
-  return cudaSuccess;
-}
-
 template <typename Kernel>
 static cudaError_t launch_cooperative(Kernel kernel, int grid, size_t smem, void** args,
-                                      cudaStream_t stream, int threads = PANEL_THREADS) {
+                                      cudaStream_t stream, int threads) {
   if (grid < 1) return cudaErrorInvalidValue;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;

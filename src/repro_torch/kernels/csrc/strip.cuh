@@ -1,6 +1,7 @@
 // Strip-blocked triangular solves on a tile of right-hand sides held in
-// shared memory: the routines of the TRSM kernels (trsm.cu) and of the
-// fused LU panel update's U12 solve (fused_pu.cu), which must round alike.
+// shared memory: the routines of the TRSM kernels (trsm.cu), of the fused
+// LU panel update's U12 solve and of the fused Cholesky kernel's solve of
+// the rows below its diagonal block (fused_pu.cu), which must round alike.
 //
 // A block owns NC right-hand sides and all b rows of them: an x tile
 // xs[b][NCP] (NC columns of B, or NC rows of B staged transposed for a
@@ -136,12 +137,14 @@ __device__ __forceinline__ int segments(bool lower, int b, int seg, int k) {
 // Column p of the triangle is in registers, the next column loading
 // meanwhile.  Rows past a ragged strip's w compute on stale values and are
 // never stored (the buffer holds whole strips, so they stay inside it).
+// ncp: the x tile's row stride (NCP unless the tile is sized at run time).
 template <typename T, bool LOWER, bool UNIT, int NCP, int RS>
-__device__ __forceinline__ void diag_solve(T* xs, const T* ts, Strip st, int c) {
+__device__ __forceinline__ void diag_solve(T* xs, const T* ts, Strip st, int c,
+                                           int ncp = NCP) {
   const T* tq = ts + (st.lo - st.r0) * RS;  // row q of the strip at tq + q * RS
   T xr[R], cols[2][R];
 #pragma unroll
-  for (int q = 0; q < R; ++q) xr[q] = q < st.w ? xs[(st.lo + q) * NCP + c] : T(0);
+  for (int q = 0; q < R; ++q) xr[q] = q < st.w ? xs[(st.lo + q) * ncp + c] : T(0);
   // rows p.. (lower) or ..p (upper) of column p
   auto load_col = [&](int p, T(&dst)[R]) {
 #pragma unroll
@@ -163,7 +166,7 @@ __device__ __forceinline__ void diag_solve(T* xs, const T* ts, Strip st, int c) 
   }
 #pragma unroll
   for (int q = 0; q < R; ++q)
-    if (q < st.w) xs[(st.lo + q) * NCP + c] = xr[q];
+    if (q < st.w) xs[(st.lo + q) * ncp + c] = xr[q];
 }
 
 // Phase 2 of a strip: its terms applied to the rows [u0, u1), by thread
@@ -172,20 +175,20 @@ __device__ __forceinline__ void diag_solve(T* xs, const T* ts, Strip st, int c) 
 // and x's are +0, so they leave every accumulator as it is.
 template <typename T, bool LOWER, int NCP, int RS>
 __device__ __forceinline__ void update_rows(T* xs, const T* ts, Strip st, int u0, int u1,
-                                            int c, int g, int G) {
+                                            int c, int g, int G, int ncp = NCP) {
   using Vec = typename Vec16<T>::type;
   constexpr int V = V16<T>;
   if (u0 + g >= u1) return;
   T xv[R];
 #pragma unroll
-  for (int p = 0; p < R; ++p) xv[p] = p < st.w ? xs[(st.lo + p) * NCP + c] : T(0);
+  for (int p = 0; p < R; ++p) xv[p] = p < st.w ? xs[(st.lo + p) * ncp + c] : T(0);
   for (int i0 = u0 + g; i0 < u1; i0 += ROWS_AT_ONCE * G) {
     T acc[ROWS_AT_ONCE];
     const T* trow[ROWS_AT_ONCE];
 #pragma unroll
     for (int a = 0; a < ROWS_AT_ONCE; ++a) {
       const int i = i0 + a * G;
-      acc[a] = i < u1 ? xs[i * NCP + c] : T(0);
+      acc[a] = i < u1 ? xs[i * ncp + c] : T(0);
       trow[a] = ts + ((i < u1 ? i : u0) - st.r0) * RS;
     }
 #pragma unroll
@@ -204,7 +207,7 @@ __device__ __forceinline__ void update_rows(T* xs, const T* ts, Strip st, int u0
 #pragma unroll
     for (int a = 0; a < ROWS_AT_ONCE; ++a) {
       const int i = i0 + a * G;
-      if (i < u1) xs[i * NCP + c] = acc[a];
+      if (i < u1) xs[i * ncp + c] = acc[a];
     }
   }
 }
@@ -343,6 +346,55 @@ __device__ void solve_tile(unsigned char* smem, int b, int seg, int64_t n, int64
       if (cc < cols) X[i * ldx + c0 + cc] = xs[i * NCP + cc];
     }
   }
+}
+
+// Solve the n right-hand sides of an x tile already in shared memory,
+// xs[b][ncp] (right-hand side c in column c), against the b x b triangle t
+// by a block of NT threads: the walk W, the triangle staged `seg` rows a
+// step (SEG: fewer than b) into two buffers at ts0, each
+// Layout<T, 1, RIGHT>::strip(b, seg) values.  The steps are solve_tile's;
+// thread c (and c + NT, ...) solves right-hand side c's diagonal blocks, and
+// each right-hand side's update takes NT / n threads (one where n >= NT).
+// Each element takes the terms it takes in solve_tile, in the same order,
+// so the result is bitwise solve_vector's.  The tile stays in shared memory.
+// ready(k), called by every thread before strip k is staged, returns once
+// the triangle's columns of strip k may be read (a triangle still being
+// written by another block).
+template <typename T, bool VEC, bool SEG, int NT, class W, class Ready>
+__device__ void solve_resident(T* ts0, T* xs, int ncp, int n, int b, int seg,
+                               const T* __restrict__ t, int64_t ldt, Ready ready) {
+  constexpr int RS = R + V16<T>;
+  const size_t len = static_cast<size_t>(Layout<T, 1, true>::rows(b, seg)) * RS;
+  auto buffer = [&](int i) { return ts0 + (i & 1) * len; };
+  const int tid = threadIdx.x, G = n >= NT ? 1 : NT / n;
+  Cursor cur{0, 0, 0};
+  ready(0);
+  stage_segment<T, RS, NT, VEC, SEG, W>(buffer(0), t, ldt, b, seg, 0, 0);
+  for (int step = 0;; ++step) {
+    cp_async_wait<0>();
+    __syncthreads();  // step landed; the other buffer's last reader is done
+    const Cursor nxt = advance<W, void, SEG>(cur, b, seg);
+    const bool more = nxt.walk < 1;
+    if (more) {
+      if (nxt.k != cur.k) ready(nxt.k);
+      stage_segment<T, RS, NT, VEC, SEG, W>(buffer(step + 1), t, ldt, b, seg, nxt.k, nxt.s);
+    }
+    const T* ts = buffer(step);
+    const Segment g = segment_of<W::LOWER, SEG>(b, seg, cur.k, cur.s);
+    if (cur.s == 0) {
+      for (int c = tid; c < n; c += NT) diag_solve<T, W::LOWER, W::UNIT, 0, RS>(xs, ts, g.st, c, ncp);
+      __syncthreads();
+    }
+    if (n >= NT) {
+      for (int c = tid; c < n; c += NT)
+        update_rows<T, W::LOWER, 0, RS>(xs, ts, g.st, g.u0, g.u1, c, 0, 1, ncp);
+    } else if (tid < G * n) {
+      update_rows<T, W::LOWER, 0, RS>(xs, ts, g.st, g.u0, g.u1, tid % n, tid / n, G, ncp);
+    }
+    if (!more) break;
+    cur = nxt;
+  }
+  __syncthreads();
 }
 
 // The widest triangle a block takes next to an x tile of NC columns: the

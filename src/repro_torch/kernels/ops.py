@@ -8,13 +8,15 @@ The port of :mod:`repro.kernels.ops`'s ``PALLAS_BACKEND``:
   the trailing update, which the reference's backend never sent to its
   fused kernel;
 * ``trsm``   → the TRSM kernel for left, non-transposed solves, lower or
-  upper, and for the right, lower, transposed solve of the Cholesky panel;
-  every other case goes to the library solve, as the reference sends it
-  to ``trsm_jnp``;
+  upper, and for the right, lower, transposed solve (the Cholesky panel's,
+  where a caller composes that panel itself); every other case goes to
+  the library solve, as the reference sends it to ``trsm_jnp``;
 * ``panel_fns`` = :data:`PANEL_KERNELS` → the GETF2 panel kernel (LU),
-  the GEQR2+LARFT panel kernel (QR), the xLAQPS panel kernel (global
-  QRCP and ``qrcp_local``) and the xLAHR2 panel kernel (Hessenberg) for
-  every scheduling variant;
+  the Cholesky kernel of the fused panel update launched with no update
+  terms (Cholesky: POTF2 and the solve below it, which the reference
+  traces as jnp ops), the GEQR2+LARFT panel kernel (QR), the xLAQPS panel
+  kernel (global QRCP and ``qrcp_local``) and the xLAHR2 panel kernel
+  (Hessenberg) for every scheduling variant (``la_mb``: its first panel);
 * ``larft`` → the LARFT entry of the QR panel kernel, which
   :func:`repro_torch.core.qr.build_t_matrix` takes on CUDA tensors;
 * ``fused_pu`` = :data:`FUSED_PU` → the fused panel-update kernels of
@@ -49,7 +51,7 @@ from repro_torch.kernels import wkv6 as _wkv
 __all__ = ["CUDA_BACKEND", "PANEL_KERNELS", "FUSED_PU", "KERNELS",
            "SMALL_SOLVE_MAX_N", "gemm", "update", "trsm", "lu_panel",
            "qr_panel", "larft", "qrcp_panel", "hessenberg_panel",
-           "lu_solve_small",
+           "lu_solve_small", "cholesky_panel",
            "fused_lu_panel_update", "fused_cholesky_panel_update",
            "launches", "reset_launches"]
 
@@ -60,6 +62,7 @@ larft = _pqr.larft
 qrcp_panel = _pqrcp.qrcp_panel
 hessenberg_panel = _phess.hessenberg_panel
 lu_solve_small = _tr.lu_solve_small
+cholesky_panel = _fpu.cholesky_panel
 fused_lu_panel_update = _fpu.fused_lu_panel_update
 fused_cholesky_panel_update = _fpu.fused_cholesky_panel_update
 SMALL_SOLVE_MAX_N = _tr.SMALL_SOLVE_MAX_N
@@ -84,8 +87,9 @@ def trsm(t, b, *, side="left", lower=True, trans=False, unit_diagonal=False,
                       unit_diagonal=unit_diagonal, out=out)
 
 
-PANEL_KERNELS = {"lu": lu_panel, "qr": qr_panel, "qrcp": qrcp_panel,
-                 "qrcp_local": qrcp_panel, "hessenberg": hessenberg_panel}
+PANEL_KERNELS = {"lu": lu_panel, "cholesky": cholesky_panel, "qr": qr_panel,
+                 "qrcp": qrcp_panel, "qrcp_local": qrcp_panel,
+                 "hessenberg": hessenberg_panel}
 
 #: The fused panel updates that ``get_variant(dmf, "la_mb")`` plugs in; the
 #: engine fuses PU(k+1) and issues deeper narrow updates as regular ones.
@@ -113,6 +117,7 @@ KERNELS = {
     "trsm_right_lower_t": _tr.trsm_right_lower_t,
     "fused_lu_panel_update": _fpu.fused_lu_panel_update,
     "fused_cholesky_panel_update": _fpu.fused_cholesky_panel_update,
+    "cholesky_panel": _fpu.cholesky_panel,
     "flash_attention": _attn.flash_attention,
     "wkv6_fused": _wkv.wkv6_fused,
 }

@@ -107,6 +107,30 @@ def test_cuda_backend_schedules_are_bitwise_equal(dtype, n, b):
         assert torch.equal(got, base), variant
 
 
+@pytest.mark.parametrize("variant", ["mtb", "rtm", "la", "la2", "la_mb"])
+def test_cuda_backend_factors_each_panel_with_the_panel_kernel(monkeypatch,
+                                                               variant):
+    """The ``"cuda"`` backend's Cholesky PF is ``PANEL_KERNELS["cholesky"]``
+    (the panel kernel's wrapper) for every panel of every variant (la_mb:
+    the first; the fused update factors the others), and its factor is the
+    PyTorch-op panel's (``panel_fn=cholesky_panel``) bit for bit."""
+    from repro_torch.kernels import ops
+    calls = []
+    kernel = ops.PANEL_KERNELS["cholesky"]
+
+    def counted(panel, nb, backend):
+        calls.append(nb)
+        return kernel(panel, nb, backend)
+
+    monkeypatch.setitem(ops.PANEL_KERNELS, "cholesky", counted)
+    a, _ = _spd(50, "float64", seed=3)
+    got = lookahead.get_variant("cholesky", variant)(a, 16, device="cpu")
+    assert calls == ([16] if variant == "la_mb" else [16, 16, 16, 2])
+    want = cholesky.cholesky_blocked(a, 16, panel_fn=cholesky.cholesky_panel,
+                                     device="cpu")
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("nb", [1, 5, 16])
 def test_cholesky_unblocked_matches_reference(dtype, nb):

@@ -142,7 +142,8 @@ def test_every_kernel_source_is_built_and_counted():
     assert set(ops.KERNELS) == {"gemm_accum", "trsm", "lu_panel",
                                 "lu_solve_small", "trsm_right_lower_t",
                                 "fused_lu_panel_update",
-                                "fused_cholesky_panel_update", "qr_panel",
+                                "fused_cholesky_panel_update",
+                                "cholesky_panel", "qr_panel",
                                 "larft", "qrcp_panel", "hessenberg_panel",
                                 "flash_attention", "wkv6_fused"}
 

@@ -663,7 +663,7 @@ def test_posv_variants_bitwise_on_the_card(card, dtype):
     assert _rel(a @ x, rhs) < _tol(dtype, n, n)
     counts = ops.launches()
     assert all(counts[k] > 0 for k in ("gemm_accum", "trsm",
-                                       "trsm_right_lower_t",
+                                       "cholesky_panel",
                                        "fused_cholesky_panel_update"))
 
 
@@ -693,7 +693,8 @@ def _composed_lu(l11, l21, a1l, a2l):
 
 def _composed_cholesky(lrow, l21, panel):
     """The kernels the fused Cholesky update replaces: GEMM-accumulate, then
-    the Cholesky panel (PyTorch ops on the card and the right TRSM)."""
+    the Cholesky panel composed of PyTorch ops on the card and the right
+    TRSM kernel (the rounding the reference specifies)."""
     ops.update(panel, l21, lrow.mT.contiguous())
     return cholesky_panel(panel, lrow.shape[0], "cuda")
 
@@ -718,10 +719,15 @@ def test_fused_lu_matches_composed_kernels_bitwise_and_plain(card, dtype, m):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("m", [8064, 200, 129])
+@pytest.mark.parametrize("m,b", [(8064, 128), (200, 128), (129, 128),
+                                 (8064, 16), (200, 16), (7808, 384),
+                                 (500, 384)])
 def test_fused_cholesky_matches_composed_kernels_bitwise_and_plain(
-        card, dtype, m):
-    lrow, l21, panel = _chol_operands(m, 128, 128, dtype, card, 19)
+        card, dtype, m, b):
+    """b = bn: the update, POTF2 (in registers up to 128 columns, in device
+    memory past that) and the solve, bitwise the GEMM kernel, the
+    PyTorch-op POTF2 and the right TRSM kernel."""
+    lrow, l21, panel = _chol_operands(m, b, b, dtype, card, 19)
     composed = _composed_cholesky(lrow, l21, panel.clone())
     plain = fpu.fused_cholesky_panel_update_plain(lrow, l21, panel.clone())
     before = fpu.fused_cholesky_panel_update.launches
@@ -730,7 +736,7 @@ def test_fused_cholesky_matches_composed_kernels_bitwise_and_plain(
     assert got.data_ptr() == panel.data_ptr()
     assert bool(torch.isfinite(got).all())
     assert torch.equal(got, composed)
-    assert _rel(got, plain) < _kernel_tol(dtype, 256)
+    assert _rel(got, plain) < _kernel_tol(dtype, 2 * b)
 
 
 def test_fused_updates_in_place_on_strided_views(card):
@@ -785,16 +791,157 @@ def test_fused_lu_routes_and_determinism(card, dtype):
     assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
-@pytest.mark.parametrize("bn", [192, 384])
-def test_fused_cholesky_wide_diagonal_block_matches_composed(card, bn):
-    """A diagonal block past one block's shared memory (f64 bn > 169):
-    POTF2 in device memory, L11 read from there; bitwise the composed
-    kernels."""
-    lrow, l21, panel = _chol_operands(3000, 128, bn, torch.float64, card, 24)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bn", [129, 192, 384])
+def test_fused_cholesky_wide_diagonal_block_matches_composed(card, dtype, bn):
+    """A diagonal block past POTF2's registers (bn > 128): POTF2 in device
+    memory, L11 read from there; bitwise the composed kernels."""
+    lrow, l21, panel = _chol_operands(3000, 128, bn, dtype, card, 24)
+    assert fpu.cholesky_plan(3000, bn, dtype, b=128)["potf2"] == "device"
     want = _composed_cholesky(lrow, l21, panel.clone())
     got = fpu.fused_cholesky_panel_update(lrow, l21, panel)
     assert bool(torch.isfinite(got).all())
     assert torch.equal(got, want)
+
+
+def _chol_panel(m, nb, dtype, device, seed):
+    """An m x nb panel whose top block is SPD."""
+    panel = 0.1 * _randn((m, nb), dtype, device, seed)
+    panel[:nb] = _spd(nb, dtype, device, seed + 1)
+    return panel
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,nb", [(8192, 128), (128, 128), (40, 1), (300, 17),
+                                  (8229, 128), (2000, 129), (2000, 169),
+                                  (2000, 170), (2000, 240), (2000, 241)])
+def test_cholesky_panel_is_bitwise_the_pytorch_op_composition(card, dtype, m,
+                                                              nb):
+    """The panel entry (the Cholesky kernel with no update terms) against
+    cholesky_unblocked as PyTorch ops on the card and the right TRSM
+    kernel: bitwise, at m = nb, bn 1 and 17, a panel whose rows do not
+    split into whole chunks (8229), POTF2's register limit (128, 129) and
+    the old kernel's shared-memory limits (169, 170 f64; 240, 241 f32)."""
+    panel = _chol_panel(m, nb, dtype, card, 30)
+    want = cholesky_panel(panel.clone(), nb, "cuda")
+    before = dict(ops.launches())
+    got = ops.PANEL_KERNELS["cholesky"](panel, nb, "cuda")
+    counts = ops.launches()
+    assert counts["cholesky_panel"] == before["cholesky_panel"] + 1
+    assert counts["fused_cholesky_panel_update"] == \
+        before["fused_cholesky_panel_update"]
+    assert got.data_ptr() == panel.data_ptr()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
+    plain = fpu.cholesky_panel_plain(_chol_panel(m, nb, dtype, card, 30), nb)
+    assert _rel(got, plain) < _kernel_tol(dtype, nb)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cholesky_kernels_in_place_on_strided_views(card, dtype):
+    """The engine's operands: views of one matrix whose rows are not
+    16-byte aligned (n 301), the panel entry and the fused update, bitwise
+    the composition on the same views."""
+    n, k, bk = 301, 64, 40
+    a = _spd(n, dtype, card, 31)
+    ref = a.clone()
+    cholesky_panel(ref[k:, k:k + bk], bk, "cuda")
+    fpu.cholesky_panel(a[k:, k:k + bk], bk)
+    assert torch.equal(a, ref)
+    kn = k + bk
+    _composed_cholesky(ref[kn:kn + 24, k:kn], ref[kn:, k:kn], ref[kn:, kn:kn + 24])
+    fpu.fused_cholesky_panel_update(a[kn:kn + 24, k:kn], a[kn:, k:kn],
+                                    a[kn:, kn:kn + 24])
+    assert torch.equal(a, ref)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cholesky_kernels_are_deterministic(card, dtype):
+    """Two launches on the same inputs give the same bits: the panel entry
+    at 8192 x 128 and the fused update at its first PU; a panel too tall
+    for the SMs' shared memory streams, bitwise the composition too."""
+    assert fpu.cholesky_plan(8192, 128, dtype)["route"] == "resident"
+    assert fpu.cholesky_plan(8064, 128, dtype, b=128)["route"] == "resident"
+    panel = _chol_panel(8192, 128, dtype, card, 32)
+    first = fpu.cholesky_panel(panel.clone(), 128)
+    assert torch.equal(fpu.cholesky_panel(panel.clone(), 128), first)
+    ops_in = _chol_operands(8064, 128, 128, dtype, card, 33)
+    first = fpu.fused_cholesky_panel_update(*(t.clone() for t in ops_in))
+    again = fpu.fused_cholesky_panel_update(*(t.clone() for t in ops_in))
+    assert torch.equal(again, first)
+    m = 60000 if dtype == torch.float64 else 120000
+    assert fpu.cholesky_plan(m, 128, dtype)["route"] == "streamed"
+    panel = _chol_panel(m, 128, dtype, card, 34)
+    want = cholesky_panel(panel.clone(), 128, "cuda")
+    assert torch.equal(fpu.cholesky_panel(panel, 128), want)
+
+
+def test_cholesky_plan_refuses_what_cannot_fit_before_any_launch(card):
+    for dtype in DTYPES:
+        widest = fpu.cholesky_plan(8192, 128, dtype)["max_bn"]
+        assert 3000 < widest < 8000
+        with pytest.raises(ValueError, match="at most"):
+            fpu.cholesky_plan(widest + 1, widest + 1, dtype)
+        ops.reset_launches()
+        wide = torch.zeros(widest + 1, widest + 1, dtype=dtype, device=card)
+        with pytest.raises(ValueError, match="at most"):
+            fpu.cholesky_panel(wide, widest + 1)
+        lrow = torch.zeros(widest + 1, 4, dtype=dtype, device=card)
+        with pytest.raises(ValueError, match="at most"):
+            fpu.fused_cholesky_panel_update(lrow, lrow, wide)
+        assert not any(ops.launches().values())
+    a = _spd(64, torch.float64, card, 35)
+    with pytest.raises(ValueError, match="expected"):
+        fpu.cholesky_panel(a[:, :16], 8)
+    with pytest.raises(ValueError, match="expected"):
+        fpu.cholesky_panel(a[:8, :16], 16)
+    with pytest.raises(ValueError, match="unit stride"):
+        fpu.cholesky_panel(a.mT[:, :16], 16)
+    with pytest.raises(ValueError, match="not supported"):
+        fpu.cholesky_panel(a[:, :16].half(), 16)
+
+
+@pytest.mark.parametrize("dtype,bn", [(torch.float64, 2048),
+                                      (torch.float64, 3100),
+                                      (torch.float32, 4096)])
+def test_cholesky_kernel_past_potf2_shared_columns(card, dtype, bn):
+    """Diagonal blocks whose POTF2 column array (bn x 17) does not fit in
+    shared memory: the array moves to a device-memory workspace, and the
+    panel entry and the fused update stay bitwise the composition; a
+    second launch on the same stream finds the flags reset."""
+    m = bn + 300
+    pl = fpu.cholesky_plan(m, bn, dtype)
+    assert pl["potf2_cols"] == "device" and pl["workspace_bytes"] > 0
+    assert bn <= pl["max_bn"]
+    panel = _chol_panel(m, bn, dtype, card, 36)
+    want = cholesky_panel(panel.clone(), bn, "cuda")
+    got = fpu.cholesky_panel(panel.clone(), bn)
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
+    assert torch.equal(fpu.cholesky_panel(panel, bn), want)
+    lrow, l21, upd = _chol_operands(m, 64, bn, dtype, card, 37)
+    assert fpu.cholesky_plan(m, bn, dtype, b=64)["potf2_cols"] == "device"
+    want = _composed_cholesky(lrow, l21, upd.clone())
+    assert torch.equal(fpu.fused_cholesky_panel_update(lrow, l21, upd), want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_posv_at_block_2048(card, dtype):
+    """cholesky_factor / posv with a 2048-column block (POTF2's column
+    array in device memory in f64): every variant bitwise mtb, residual
+    within the drivers' bound."""
+    n, b = 4500, 2048
+    spd = _spd(n, dtype, card, 38)
+    rhs = _randn((n, 3), dtype, card, 39)
+    ops.reset_launches()
+    base = cholesky_factor(spd, b, variant="mtb")
+    for variant in ("rtm", "la", "la2", "la_mb"):
+        assert torch.equal(cholesky_factor(spd, b, variant=variant).l,
+                           base.l), variant
+    assert _scaled_residual(spd, posv(spd, rhs, b, variant="la"), rhs) < 100
+    counts = ops.launches()
+    assert counts["cholesky_panel"] > 0
+    assert counts["fused_cholesky_panel_update"] > 0
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -822,7 +969,7 @@ def test_drivers_with_blocks_wider_than_256(card, dtype, b):
     counts = ops.launches()
     assert all(counts[k] > 0 for k in ("trsm", "lu_panel",
                                        "fused_lu_panel_update",
-                                       "trsm_right_lower_t",
+                                       "cholesky_panel",
                                        "fused_cholesky_panel_update"))
 
 
@@ -1126,6 +1273,9 @@ def test_torch_backend_launches_no_kernel(card):
     gehrd(a, 32, backend="torch")
     geqp3(a, 32, backend="torch")
     geqp3(a, 32, local=True, backend="torch")
+    spd = _spd(200, torch.float64, card, 41)
+    for variant in ("mtb", "rtm", "la", "la2"):
+        cholesky_factor(spd, 32, variant=variant, backend="torch")
     assert not any(ops.launches().values())
 
 

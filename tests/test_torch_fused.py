@@ -11,7 +11,11 @@ versions meet the reference:
   interpret backend).  Those compute in float32 whatever the input dtype,
   so the tolerance is 200·max(m,n,8)·eps(f32); LU pivots must be equal;
 * the right TRSM's plain version against ``repro.kernels.ref
-  .trsm_right_lower_t`` at the input dtype, 200·max(m,n,8)·eps.
+  .trsm_right_lower_t`` at the input dtype, 200·max(m,n,8)·eps;
+* the Cholesky panel kernel's plain version against the reference's
+  ``repro.core.cholesky.cholesky_panel`` (jnp ops, no Pallas kernel) at the
+  input dtype, 200·max(m,n,8)·eps, and bitwise against the ``"cuda"``
+  backend's composed panel on the CPU.
 """
 import jax
 import jax.numpy as jnp
@@ -20,6 +24,7 @@ import pytest
 import scipy.linalg as sla
 import torch
 
+from repro.core import cholesky as ref_chol
 from repro.kernels import fused_panel_update as ref_fpu
 from repro.kernels import ref as ref_kernels
 from repro_torch.core.cholesky import cholesky_panel
@@ -128,12 +133,56 @@ def test_trsm_right_plain_matches_reference(dtype, m, bn, unit):
     assert out is rhs and torch.equal(out, got)
 
 
+def _chol_panel(m, nb, dtype, seed=6):
+    """An m x nb panel of an SPD matrix's first block column."""
+    g = _rand((m, m), seed, np.float64)
+    a = g @ g.T + m * np.eye(m)
+    return np.ascontiguousarray(a[:, :nb], dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,nb", [(40, 16), (16, 16), (33, 7), (1, 1),
+                                  (9, 1)])
+def test_cholesky_panel_plain_matches_reference(dtype, m, nb):
+    """The panel kernel's CPU path (its plain version) against the
+    reference's jnp panel on the same inputs; lower, upper triangle of the
+    top block zero."""
+    panel = _chol_panel(m, nb, dtype)
+    ref = ref_chol.cholesky_panel(jnp.asarray(panel), nb)
+    t = torch.from_numpy(panel.copy())
+    out = fpu.cholesky_panel(t, nb)
+    assert out is t
+    assert float(torch.triu(out[:nb], 1).abs().max()) == 0.0
+    assert _rel(out, ref) < _tol(m, nb, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,nb", [(40, 16), (16, 16), (33, 7)])
+def test_cholesky_panel_cpu_is_bitwise_the_composed_panel(dtype, m, nb):
+    """On the CPU the panel kernel's wrapper, and the registry's panel, give
+    the bits of the ``"cuda"`` backend's composed panel (``cholesky_unblocked``
+    and the right TRSM wrapper)."""
+    panel = torch.from_numpy(_chol_panel(m, nb, dtype))
+    want = cholesky_panel(panel.clone(), nb, "cuda")
+    assert torch.equal(fpu.cholesky_panel(panel.clone(), nb), want)
+    assert torch.equal(ops.PANEL_KERNELS["cholesky"](panel.clone(), nb,
+                                                     "cuda"), want)
+    assert torch.equal(fpu.cholesky_panel_plain(panel.clone(), nb), want)
+
+
+def test_cholesky_panel_is_the_backends_panel_kernel():
+    assert ops.PANEL_KERNELS["cholesky"] is fpu.cholesky_panel
+    assert ops.KERNELS["cholesky_panel"] is fpu.cholesky_panel
+    assert ops.CUDA_BACKEND.panel_fns["cholesky"] is fpu.cholesky_panel
+
+
 def test_cpu_tensors_count_no_launch():
     ops.reset_launches()
     fpu.fused_lu_panel_update(*map(torch.from_numpy,
                                    _lu_operands(20, 8, 8, np.float64)))
     fpu.fused_cholesky_panel_update(*map(torch.from_numpy,
                                          _chol_operands(20, 8, 8, np.float64)))
+    fpu.cholesky_panel(torch.from_numpy(_chol_panel(20, 8, np.float64)), 8)
     l = torch.eye(4, dtype=torch.float64)
     trsm.trsm_right_lower_t(l, torch.ones(6, 4, dtype=torch.float64))
     assert ops.launches() == dict.fromkeys(ops.KERNELS, 0)
@@ -141,7 +190,8 @@ def test_cpu_tensors_count_no_launch():
 
 @pytest.mark.parametrize("call", ["lu_shape", "lu_dtype", "lu_stride",
                                   "chol_shape", "chol_short", "right_shape",
-                                  "right_dtype"])
+                                  "right_dtype", "panel_width", "panel_short",
+                                  "panel_dtype", "panel_stride", "panel_dim"])
 def test_wrappers_raise_on_bad_operands(call):
     l11, l21, a1l, a2l = map(torch.from_numpy,
                              _lu_operands(20, 8, 8, np.float64))
@@ -157,6 +207,11 @@ def test_wrappers_raise_on_bad_operands(call):
             lrow, c21[:5], p[:5]),
         "right_shape": lambda: trsm.trsm_right_lower_t(l11, a2l[:, :4]),
         "right_dtype": lambda: trsm.trsm_right_lower_t(l11, a2l.half()),
+        "panel_width": lambda: fpu.cholesky_panel(p, 4),
+        "panel_short": lambda: fpu.cholesky_panel(p[:5], 8),
+        "panel_dtype": lambda: fpu.cholesky_panel(p.half(), 8),
+        "panel_stride": lambda: fpu.cholesky_panel(p.mT, 20),
+        "panel_dim": lambda: fpu.cholesky_panel(p[0], 8),
     }
     with pytest.raises(ValueError):
         calls[call]()

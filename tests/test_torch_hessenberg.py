@@ -160,17 +160,27 @@ def test_torch_backend_agrees_to_tolerance():
 
 
 def test_torch_backend_calls_no_kernel_wrapper(monkeypatch):
-    """``backend="torch"`` takes no panel or larft wrapper, for Hessenberg
-    and both column-pivoted QRs (the rule of ``core/backend.py``)."""
-    from repro_torch.kernels import panel_qr, panel_qrcp
-    from repro_torch.solve import geqp3
+    """``backend="torch"`` takes no panel or larft wrapper, for Hessenberg,
+    both column-pivoted QRs and Cholesky (the rule of
+    ``core/backend.py``)."""
+    from repro_torch.kernels import fused_panel_update, ops, panel_qr, \
+        panel_qrcp
+    from repro_torch.solve import cholesky_factor, geqp3
 
     def refuse(*args, **kwargs):
         raise AssertionError("a kernel wrapper ran under backend='torch'")
 
     for mod, name in ((panel_hessenberg, "hessenberg_panel"),
-                      (panel_qrcp, "qrcp_panel"), (panel_qr, "larft")):
+                      (panel_qrcp, "qrcp_panel"), (panel_qr, "larft"),
+                      (fused_panel_update, "cholesky_panel")):
         monkeypatch.setattr(mod, name, refuse)
+    # (la_mb's fused update runs under "torch" too, as the reference's jnp
+    # backend runs its Pallas kernel; its first panel is the engine's own)
+    monkeypatch.setitem(ops.PANEL_KERNELS, "cholesky", refuse)
+    spd = _rand((24, 24), 7, np.float64)
+    spd = spd @ spd.T + 24 * np.eye(24)
+    for variant in ("mtb", "rtm", "la", "la2", "la_mb"):
+        cholesky_factor(spd, 8, variant=variant, backend="torch", device="cpu")
     a = _rand((24, 24), 6, np.float64)
     base = gehrd(a, 8, device="cpu")
     for variant in ("mtb", "rtm"):

@@ -7,6 +7,15 @@ turns on one card:
 * ``lu``: ``lu_panel`` on the main path's 8192 x 128 panel and
   ``fused_lu_panel_update`` on its first PU (L11 128 x 128, an 8064 x 128
   panel);
+* ``cholesky``: ``fused_cholesky_panel_update`` on ``posv``'s first PU
+  (lrow 128 x 128, an 8064 x 128 panel) and at block 384 (a 7808 x 384
+  panel), and the Cholesky panel kernel ``cholesky_panel`` on the first
+  panel (8192 x 128, and 8192 x 384) where the tree has it;
+* ``cholesky_wide``: the Cholesky panel at blocks whose POTF2 column
+  array leaves shared memory (8192 x 2048 float64, 8192 x 4096 float32):
+  the PyTorch-op panel (``core.cholesky.cholesky_panel``: PyTorch ops,
+  then the right TRSM kernel) and the ``cholesky_panel`` kernel where the
+  tree has it, 3 calls each;
 * ``qrcp``: ``qrcp_panel`` on a ``qrcp_local`` window (16384 x 128) and on
   the global path's first block (16384 x 4096), 128 steps each;
 * ``hessenberg``: ``hessenberg_panel`` on ``gehrd``'s first panel at
@@ -15,7 +24,7 @@ turns on one card:
 
     python3 tools/panel_timing.py                       # this tree, all
     python3 tools/panel_timing.py --src OTHER/src       # another checkout
-    python3 tools/panel_timing.py --only qrcp,hessenberg
+    python3 tools/panel_timing.py --only cholesky
 
 The kernels work in place, so each run starts from a fresh copy of its
 operands and the copy's own time is subtracted.  Prints the card's name
@@ -74,8 +83,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
                                          / "src"))
-    ap.add_argument("--only", default="lu,qrcp,hessenberg",
-                    help="comma-separated groups: lu, qrcp, hessenberg")
+    ap.add_argument("--only", default="lu,cholesky,qrcp,hessenberg",
+                    help="comma-separated groups: lu, cholesky, "
+                         "cholesky_wide, qrcp, hessenberg")
     args = ap.parse_args()
     groups = set(args.only.split(","))
     if not torch.cuda.is_available():
@@ -84,6 +94,7 @@ def main() -> int:
     sys.path.insert(0, args.src)
     from repro_torch.kernels import _build, panel_hessenberg, panel_lu, \
         panel_qrcp
+    from repro_torch.core.cholesky import cholesky_panel as op_panel
     from repro_torch.kernels import fused_panel_update as fpu
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -117,6 +128,39 @@ def main() -> int:
 
             row["fused_lu_panel_update"] = both(fused, fresh)
             del l11, l21, a1l0, a2l0, a1l, a2l
+        if "cholesky" in groups:
+            def spd(n):
+                g = randn(n, n)
+                return g @ g.mT / n + torch.eye(n, dtype=dtype, device=dev)
+
+            for bb in (BLOCK, 3 * BLOCK):
+                sfx = "" if bb == BLOCK else f"_b{bb}"
+                m = N - bb
+                l21 = 0.1 * randn(m, bb)
+                panel = 0.1 * randn(m, bb)
+                panel[:bb] = l21[:bb] @ l21[:bb].mT + spd(bb)
+                row["fused_cholesky_panel_update" + sfx] = in_place(
+                    lambda p: fpu.fused_cholesky_panel_update(l21[:bb], l21, p),
+                    panel, 20)
+                if hasattr(fpu, "cholesky_panel"):
+                    first = 0.1 * randn(N, bb)
+                    first[:bb] = spd(bb)
+                    row["cholesky_panel" + sfx] = in_place(
+                        lambda p: fpu.cholesky_panel(p, bb), first, 20)
+                    del first
+                del l21, panel
+        if "cholesky_wide" in groups:
+            bw = 2048 if dtype == torch.float64 else 4096
+            g = randn(bw, bw)
+            first = 0.1 * randn(N, bw)
+            first[:bw] = g @ g.mT / bw + torch.eye(bw, dtype=dtype, device=dev)
+            del g
+            row[f"pytorch_op_panel_b{bw}"] = in_place(
+                lambda p: op_panel(p, bw, "cuda"), first, 3)
+            if hasattr(fpu, "cholesky_panel"):
+                row[f"cholesky_panel_b{bw}"] = in_place(
+                    lambda p: fpu.cholesky_panel(p, bw), first, 3)
+            del first
         if "qrcp" in groups:
             for key, cols, reps in (("qrcp_panel_window", BLOCK, 20),
                                     ("qrcp_panel_global", QR_N, 10)):
