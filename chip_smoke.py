@@ -121,8 +121,11 @@
     rounding reaches the exponents), which three planted faults must
     exceed (the state dropped at a chunk boundary, the diagonal in the score
     mask, the last chunk not written); a run split at a chunk boundary
-    equals the unsplit one bitwise; with its time, the plain version's and
-    the bound (no PyTorch call computes WKV6).
+    equals the unsplit one bitwise, and a second run gives the same bits;
+    the plan (tiles, grid, blocks an SM, workspace bytes, flag words,
+    shared memory, registers, spills); with its time on a busy card and of one
+    call from an idle one, the plain version's and the bound (no PyTorch
+    call computes WKV6).
 14. serving: rwkv6-7b at full width and depth (32 layers, bfloat16) the
     same way as phi3: 32 ``wkv6_fused`` launches in the prefill, none in
     decode (``wkv6_step`` is plain tensor ops, as in the reference).
@@ -1953,7 +1956,12 @@ def main() -> int:
             s0 = None if key != "ragged" else wkv.wkv6_fused(
                 *wkv_inputs(bsz, PROMPT, dtype, SEED + 11), chunk=c)[1]
             got, sfin = wkv.wkv6_fused(r, k, v, logw, u, s0=s0, chunk=c)
+            again, s_again = wkv.wkv6_fused(r, k, v, logw, u, s0=s0, chunk=c)
             sync()
+            same_bits = bool(torch.equal(again, got)
+                             and torch.equal(s_again, sfin))
+            del again, s_again
+            pl = wkv.plan(bsz, heads, seq, hd, c, dtype)
             want, tol, s_want, s_tol = wkv.wkv6_expect(r, k, v, logw, u,
                                                        s0=s0, chunk=c)
             worst = wkv_within(got, want, tol)
@@ -1989,6 +1997,8 @@ def main() -> int:
                   f"float32 {plain}")
             check(split_equal, f"wkv6_fused {dtype} {key}: the run split at "
                   f"{cut} differs from the unsplit one")
+            check(same_bits, f"wkv6_fused {dtype} {key}: a second run gave "
+                  "other bits")
             check(min(planted.values()) > 1.0,
                   f"wkv6_fused {dtype} {key}: the tolerance does not catch "
                   f"each planted fault: {planted}")
@@ -1997,11 +2007,18 @@ def main() -> int:
                 max_abs_err=float((got.double() - want).abs().max()),
                 err_over_tol=worst, state_err_over_tol=s_worst,
                 plain_err_over_tol=plain, split_at=cut,
-                split_equals_unsplit=split_equal,
+                split_equals_unsplit=split_equal, same_bits=same_bits,
                 planted_err_over_tol=planted,
                 clipped_share=clipped,
-                ms=time_ms(lambda: wkv.wkv6_fused(r, k, v, logw, u, s0=s0,
-                                                  chunk=c), reps),
+                plan={key_: pl[key_] for key_ in (
+                    "tiles", "grid", "blocks_per_sm", "threads",
+                    "workspace_bytes", "flag_words", "smem_bytes",
+                    "registers", "local_bytes")},
+                # ms on a busy card, call_ms one call from an idle one
+                ms=queued_ms(lambda: wkv.wkv6_fused(r, k, v, logw, u, s0=s0,
+                                                    chunk=c), reps),
+                call_ms=time_ms(lambda: wkv.wkv6_fused(r, k, v, logw, u,
+                                                       s0=s0, chunk=c), reps),
                 plain_ms=time_ms(lambda: wkv.wkv6_fused_plain(
                     r, k, v, logw, u, s0=s0, chunk=c), 1),
                 library_ms=None,   # no PyTorch call computes WKV6

@@ -20,6 +20,13 @@ bfloat16 ``r``, ``k``, ``v`` (converted to float32 inside), float32
 ``logw``, ``u`` and ``s0``, head dims ``dk = dv`` of 32 or 64, and chunks
 of at most 128 tokens.
 
+The kernel cuts the work into (batch·head, chunk) tiles, which a
+persistent grid of one block an SM takes in chunk-major order; each tile
+does its chunk's own work and then waits for the state of the chunk
+before it, so only the state update runs in chunk order (the source note
+of ``csrc/wkv6.cu``).  :func:`plan` shows how a shape runs: the tiles, the
+grid, the workspace (two state slots a head) and the int32 flags.
+
 The plain PyTorch version, :func:`wkv6_fused_plain`, is the reference's
 chunk loop; :func:`wkv6_fused` runs it on CPU tensors.  :func:`wkv6_expect`
 gives the kernel's elementwise tolerance against the plain version run in
@@ -27,14 +34,17 @@ float64, the bound the card's checks hold the kernel to.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
 
 __all__ = ["wkv6_fused", "wkv6_fused_plain", "wkv6_expect", "wkv6_faults",
-           "CLIP", "HEAD_DIMS", "MAX_CHUNK"]
+           "plan", "CLIP", "HEAD_DIMS", "MAX_CHUNK"]
 
 #: the exponent guard of the reference (``repro/models/rwkv6.py::_CLIP``)
 CLIP = 80.0
@@ -48,7 +58,13 @@ DTYPES = (torch.float32, torch.bfloat16)
 _LAMBDA = 10.0
 
 _LIB = "wkv6"
-_ARGS = [_build.c_ptr] * 8 + [_build.c_i64] * 5 + [_build.c_ptr]
+_ARGS = [_build.c_ptr] * 10 + [_build.c_i64] * 6 + [_build.c_ptr]
+_PLAN_ARGS = [_build.c_i64, ctypes.POINTER(_build.c_i64)]
+#: (device index, raw stream) -> the kernel's int32 flags (a head's count of
+#: published chunks, then the ticket): zeroed when allocated and left at 0
+#: by every launch (a head's last chunk resets its count, the last ticket
+#: taken the ticket)
+_FLAGS: dict = {}
 
 
 def _check(r, k, v, logw, u, s0, chunk):
@@ -77,6 +93,56 @@ def _check(r, k, v, logw, u, s0, chunk):
                          "grad")
     if int(chunk) < 1:
         raise ValueError(f"wkv6_fused: chunk {chunk} < 1")
+
+
+@functools.lru_cache(maxsize=None)
+def _card(dtype: torch.dtype, d: int, index: int) -> dict:
+    """What one SM of card ``index`` takes of the kernel (builds the
+    library): blocks an SM, shared bytes a block, registers and local
+    (spill) bytes a thread, threads a block, and the card's SMs."""
+    out = (_build.c_i64 * 5)()
+    fn = _build.function(_LIB, f"repro_wkv6_plan_{_build.SUFFIX[dtype]}",
+                         _PLAN_ARGS)
+    with torch.cuda.device(index):
+        err = fn(d, out)
+    _build.check_launch(_LIB, err, f"wkv6 plan for {dtype}, D {d}")
+    return {"blocks_per_sm": out[0], "smem_bytes": out[1],
+            "registers": out[2], "local_bytes": out[3], "threads": out[4],
+            "sms": torch.cuda.get_device_properties(index)
+            .multi_processor_count}
+
+
+def plan(b: int, h: int, s: int, d: int, chunk: int = 128,
+         dtype: torch.dtype = torch.bfloat16, *, sms: Optional[int] = None,
+         blocks_per_sm: Optional[int] = None,
+         device: Optional[torch.device] = None) -> dict:
+    """How ``wkv6_fused`` runs (B, H, S, D) with ``chunk``: the chunk
+    length ``chunk`` (``min(chunk, S)``, at least 1), ``chunks`` a head and
+    ``last_rows`` in the last one, ``tiles`` (B·H·chunks, taken in
+    chunk-major order: ticket i is chunk i // (B·H) of head i % (B·H)),
+    ``grid`` (the tiles, at most ``sms`` × ``blocks_per_sm``, at least 1),
+    ``workspace_bytes`` (two float32 D × D state slots a head) and
+    ``flag_words`` (a count a head and the ticket).  ``sms`` and
+    ``blocks_per_sm`` default to the card's (which builds the library and
+    adds its shared bytes, registers and spills to the plan)."""
+    c = max(1, min(int(chunk), s))
+    chunks = -(-s // c) if s > 0 else 0
+    out = {"chunk": c, "chunks": chunks,
+           "last_rows": s - (chunks - 1) * c if chunks else 0,
+           "tiles": b * h * chunks, "workspace_bytes": 4 * 2 * b * h * d * d,
+           "flag_words": b * h + 1}
+    if sms is None or blocks_per_sm is None:
+        device = torch.device(device or "cuda")
+        index = device.index if device.index is not None \
+            else torch.cuda.current_device()
+        card = _card(dtype, d, index)
+        out.update(card)
+        sms = card["sms"] if sms is None else sms
+        blocks_per_sm = card["blocks_per_sm"] if blocks_per_sm is None \
+            else blocks_per_sm
+    out["grid"] = max(1, min(out["tiles"], sms * blocks_per_sm))
+    out["blocks_per_sm"] = blocks_per_sm
+    return out
 
 
 def wkv6_fused(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -115,13 +181,22 @@ def wkv6_fused(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sfin = torch.empty((b, h, dk, dv), dtype=f32, device=r.device)
     if b * h == 0:
         return out, sfin
+    device = r.device
+    pl = plan(b, h, s, dk, c, r.dtype, device=device)
+    slots = torch.empty(pl["workspace_bytes"] // 4, dtype=f32, device=device)
+    stream = _build.stream_of(device)
+    key = (device.index, stream.value)
+    flags = _FLAGS.get(key)
+    if flags is None or flags.numel() < pl["flag_words"]:
+        flags = _FLAGS[key] = torch.zeros(pl["flag_words"], dtype=torch.int32,
+                                          device=device)
     fn = _build.function(_LIB, f"repro_wkv6_{_build.SUFFIX[r.dtype]}", _ARGS)
-    with _build.device_guard(r.device):
+    with _build.device_guard(device):
         err = fn(_build.ptr(r), _build.ptr(k), _build.ptr(v),
                  _build.ptr(logw), _build.ptr(u),
                  None if s0 is None else _build.ptr(s0), _build.ptr(out),
-                 _build.ptr(sfin), b, h, s, dk, c,
-                 _build.stream_of(r.device))
+                 _build.ptr(sfin), _build.ptr(slots), _build.ptr(flags), b, h,
+                 s, dk, c, pl["grid"], stream)
     _build.check_launch(_LIB, err, "wkv6 kernel launch")
     wkv6_fused.launches += 1
     return out, sfin
@@ -171,8 +246,9 @@ def wkv6_expect(r, k, v, logw, u, *, s0=None, chunk: int = 128):
 
     The kernel computes in float32 (u = 2^-24) from the same inputs.  Its
     exponent arguments come from a cumulative sum over up to n ≤ c rows,
-    whose rounding error is at most (n + 8)·u·Σ|logw| (a recursive sum,
-    plus the kernel's 8 segment offsets); the clip at ±80 caps what that
+    whose rounding error is at most (n + 8)·u·Σ|logw| (a recursive sum;
+    the kernel's warp scan of each 32-row segment and its carry add take
+    ⌈log₂ 32⌉ + 1 roundings and one a segment); the clip at ±80 caps what that
     error can do (an argument past the clip by more than the error is
     clipped on both sides), so the error is taken on min(Σ|logw|, 2·80).
     It reaches each factor exp(·) as a relative error, with expf's 2 ulp

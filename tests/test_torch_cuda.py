@@ -20,6 +20,8 @@ collection) when no GPU is present.  On a machine with one:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1114,6 +1116,50 @@ def test_qrcp_panel_zero_and_tied_columns(card, dtype):
     assert int(got[4][0]) == 3
 
 
+def test_qrcp_streamed_window_pivot_differences_are_near_ties(card):
+    """The f32 streamed window (65536 x 128, 128 steps) on 20 inputs: where
+    the kernel picks another pivot than its plain version, the first such
+    step j is a near-tie.  From the plain version's state after j steps the
+    two candidates' downdated norms are recomputed in f64 (the squared
+    norms of their columns brought current below row j); their gap lies
+    within the downdate's f32 rounding bound, chain x eps of the larger
+    candidate's first squared norm (chain: the plan's).  A gap past it
+    would be a fault of the kernel.  Prints what it found (one JSON
+    line)."""
+    r, c, steps, dtype = 65536, 128, 128, torch.float32
+    plan = panel_qrcp.plan(r, c, steps, dtype)
+    assert plan["route"] == "streamed"
+    eps = torch.finfo(dtype).eps
+    found = []
+    for seed in range(200, 220):
+        a = _randn((r, c), dtype, card, seed)
+        got = panel_qrcp.qrcp_panel(a.clone(), steps)[4]
+        want = panel_qrcp.qrcp_panel_plain(a.clone(), steps)[4]
+        diff = (got != want).nonzero()
+        if not len(diff):
+            continue
+        j = int(diff[0])
+        blk, v, f, _, piv = panel_qrcp.qrcp_panel_plain(a.clone(), j)
+        cur = blk[j:, j:].double() \
+            - v[j:, :j].double() @ f[j:, :j].double().mT
+        vn = (cur * cur).sum(0)
+        order = list(range(c))
+        for l_ in range(j):
+            p_ = int(piv[l_])
+            order[l_], order[p_] = order[p_], order[l_]
+        picks = (int(got[j]) - j, int(want[j]) - j)
+        vn0 = max(float((a[:, order[j + x]].double() ** 2).sum())
+                  for x in picks)
+        gap = abs(float(vn[picks[0]] - vn[picks[1]]))
+        found.append({"seed": seed, "step": j, "kernel": int(got[j]),
+                      "plain": int(want[j]), "gap": gap,
+                      "bound": plan["chain"] * eps * vn0,
+                      "norms": [float(vn[x]) for x in picks]})
+    print(json.dumps({"qrcp_streamed_f32_pivot_differences": found,
+                      "inputs": 20, "chain": plan["chain"]}))
+    assert all(x["gap"] <= x["bound"] for x in found), found
+
+
 def test_qrcp_plan_refuses_what_cannot_fit_before_any_launch(card):
     """More steps than a block's shared memory holds the vectors of: a
     ValueError from the plan and from the wrapper, and no launch."""
@@ -1546,6 +1592,81 @@ def test_wkv6_bound_catches_planted_faults_and_splits_bitwise(card, dtype):
     for name, bad in wkv6.wkv6_faults(r, k, v, logw, u, got, s0=s0, chunk=c,
                                       split_at=512).items():
         assert _wkv_ratio(bad, want, tol) > 1.0, name
+
+
+def _wkv_checked(r, k, v, logw, u, s0, chunk):
+    """One kernel call, its out and final state within wkv6_expect's bound,
+    and a second call with the same bits."""
+    got, st = wkv6.wkv6_fused(r, k, v, logw, u, s0=s0, chunk=chunk)
+    want, tol, s_want, s_tol = wkv6.wkv6_expect(r, k, v, logw, u, s0=s0,
+                                                chunk=chunk)
+    if got.numel():
+        assert _wkv_ratio(got, want, tol) <= 1.0
+    assert _wkv_ratio(st, s_want, s_tol) <= 1.0
+    again, st2 = wkv6.wkv6_fused(r, k, v, logw, u, s0=s0, chunk=chunk)
+    assert torch.equal(again, got) and torch.equal(st2, st)
+    return got, st
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("d", (32, 64))
+def test_wkv6_splits_at_every_chunk_boundary_bitwise(card, dtype, d):
+    # a 6-chunk sequence from a state, split at each chunk boundary and
+    # continued from the first part's final state: the same bits
+    b, h, c = 2, 3, 64
+    r, k, v, logw, u, s0 = _wkv_inputs(b, h, 6 * c, d, dtype, card, 81 + d)
+    got, st = _wkv_checked(r, k, v, logw, u, s0, c)
+    for cut in range(c, 6 * c, c):
+        o1, s1 = wkv6.wkv6_fused(*(x[:, :, :cut] for x in (r, k, v, logw)),
+                                 u, s0=s0, chunk=c)
+        o2, s2 = wkv6.wkv6_fused(*(x[:, :, cut:] for x in (r, k, v, logw)),
+                                 u, s0=s1, chunk=c)
+        assert torch.equal(torch.cat([o1, o2], 2), got), cut
+        assert torch.equal(s2, st), cut
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("b,h,s,d,chunk,with_s0", [
+    (1, 1, 128, 64, 128, False),    # one chunk a head
+    (1, 2, 256, 64, 128, True),     # two
+    (1, 2, 2000, 64, 128, True),    # sixteen, a ragged tail from a state
+    (8, 64, 200, 64, 128, False),   # 512 heads: more than resident blocks
+    (2, 3, 50, 64, 128, True),      # S < c
+    (3, 2, 1, 64, 128, True),       # S = 1
+    (1, 2, 9, 32, 1, True),         # chunk 1
+    (2, 2, 333, 32, 64, True)])     # D 32, a ragged tail from a state
+def test_wkv6_tiles_at_the_edges(card, dtype, b, h, s, d, chunk, with_s0):
+    # the plan's tiles and grid, then the kernel within its bound, twice
+    # with the same bits
+    pl = wkv6.plan(b, h, s, d, chunk, dtype)
+    assert pl["tiles"] == b * h * -(-s // min(chunk, s))
+    assert pl["grid"] == min(pl["tiles"], pl["sms"] * pl["blocks_per_sm"])
+    assert pl["blocks_per_sm"] >= 1 and pl["registers"] <= 65536 // (
+        pl["threads"] * pl["blocks_per_sm"])
+    r, k, v, logw, u, s0 = _wkv_inputs(b, h, s, d, dtype, card, 90 + s + d)
+    _wkv_checked(r, k, v, logw, u, s0 if with_s0 else None, chunk)
+
+
+def test_wkv6_back_to_back_shapes_leave_the_flags_at_zero(card):
+    # calls of other shapes in turn on one stream (the ticket and the
+    # heads' counts must start from 0 each time), S = 0 (the final state
+    # is the start state), then the first call again: the same bits
+    shapes = [(2, 4, 300, 64, 128, torch.bfloat16),
+              (1, 2, 1000, 32, 64, torch.float32),
+              (8, 64, 130, 64, 128, torch.float32),
+              (1, 1, 3, 64, 2, torch.bfloat16)]
+    first = None
+    for b, h, s, d, chunk, dtype in shapes + shapes[:1]:
+        r, k, v, logw, u, s0 = _wkv_inputs(b, h, s, d, dtype, card, s + d)
+        res = _wkv_checked(r, k, v, logw, u, s0, chunk)
+        if first is None:
+            first = res
+    assert torch.equal(res[0], first[0]) and torch.equal(res[1], first[1])
+    r, k, v, logw, u, s0 = _wkv_inputs(1, 2, 0, 64, torch.float32, card, 5)
+    out, st = wkv6.wkv6_fused(r, k, v, logw, u, s0=s0)
+    assert out.shape == (1, 2, 0, 64) and torch.equal(st, s0)
+    torch.cuda.synchronize()
+    assert all(not f.any() for f in wkv6._FLAGS.values())
 
 
 def test_wkv6_refuses_what_the_kernel_does_not_take(card):

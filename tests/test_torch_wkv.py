@@ -165,3 +165,30 @@ def test_wrapper_checks_its_operands():
     out, st = W.wkv6_fused(r[:, :, :0].detach(), k[:, :, :0], v[:, :, :0],
                            logw[:, :, :0], u, s0=s0)
     assert out.shape == (1, 2, 0, 8) and torch.equal(st, s0)
+
+
+@pytest.mark.parametrize("b,h,s,d,chunk,sms,want", [
+    # the serving shape: 2048 tiles on a 132-SM card, two state slots a head
+    (4, 64, 1024, 64, 128, 132, dict(chunk=128, chunks=8, last_rows=128,
+                                     tiles=2048, grid=132,
+                                     workspace_bytes=4 * 2 * 256 * 64 * 64,
+                                     flag_words=257)),
+    # one 32k sequence: 256 chunks a head
+    (1, 64, 32768, 64, 128, 132, dict(chunks=256, tiles=16384, grid=132,
+                                      workspace_bytes=4 * 2 * 64 * 64 * 64)),
+    # a ragged last chunk; fewer tiles than SMs; chunk longer than S
+    (4, 64, 1000, 64, 128, 132, dict(chunks=8, last_rows=104, tiles=2048)),
+    (1, 2, 300, 32, 64, 132, dict(chunks=5, last_rows=44, tiles=10, grid=10,
+                                  workspace_bytes=4 * 2 * 2 * 32 * 32)),
+    (2, 3, 50, 64, 128, 132, dict(chunk=50, chunks=1, last_rows=50, tiles=6)),
+    # chunk 1, and S = 0 (one block copies the start state)
+    (1, 2, 9, 32, 1, 4, dict(chunk=1, chunks=9, last_rows=1, tiles=18,
+                             grid=4)),
+    (1, 2, 0, 64, 128, 132, dict(chunks=0, tiles=0, grid=1, flag_words=3))])
+def test_plan_cuts_the_work_into_head_chunk_tiles(b, h, s, d, chunk, sms,
+                                                   want):
+    # the kernel's tiles, grid and workspace from the shape alone (the
+    # card's SMs and blocks an SM given)
+    pl = W.plan(b, h, s, d, chunk, torch.bfloat16, sms=sms, blocks_per_sm=1)
+    assert {key: pl[key] for key in want} == want
+    assert pl["blocks_per_sm"] == 1

@@ -1,5 +1,5 @@
-"""Per-phase times of the QRCP, Hessenberg and Cholesky panel kernels on
-the card.
+"""Per-phase times of the QRCP, Hessenberg and Cholesky panel kernels and
+of the WKV6 kernel on the card.
 
 Copies the kernel sources into ``build/panel_marks/`` (the sources in the
 package stay as they are), inserts marks at the phase boundaries, builds
@@ -16,9 +16,13 @@ them, float64 and float32:
   Cholesky kernel's phase boundaries for its first two blocks and at the
   start of each 16-column block of block 0's POTF2; the panel entry
   (``cholesky_panel``) on an 8192 x bn panel and the fused update on its
-  first PU (L21 (8192 - bn) x bn), bn 128 and 384.
+  first PU (L21 (8192 - bn) x bn), bn 128 and 384;
+* ``wkv``: ``clock64()`` marks in ``csrc/wkv6.cu`` (block 0, thread 0, one
+  row of marks a tile); ``wkv6_fused`` at the serving shape (4 x 64 heads
+  x 1024 tokens) and at prefill_32k (1 x 64 x 32768), head dim 64, chunk
+  128, bfloat16 and float32.
 
-    python3 tools/panel_marks.py [--only qrcp,hessenberg,cholesky]
+    python3 tools/panel_marks.py [--only qrcp,hessenberg,cholesky,wkv]
 
 Prints the card's name and power limit, then one JSON line a shape.  QRCP
 and Hessenberg: the mean cycles a step or column of each phase (the phases
@@ -30,8 +34,11 @@ share.  Cholesky, in µs from block 0's start: block 0's update (or its
 wait for the blocks that update the diagonal block's tiles), its POTF2 and
 the zeroing of the upper triangle; block 1's own update done, its solve
 done (the waits for published columns included) and its write-back done;
-and the µs of each 16-column block of POTF2.  Raises if an anchor is no
-longer in a source.
+and the µs of each 16-column block of POTF2.  WKV: the mean cycles a
+tile of each phase as thread 0 sees it (a barrier's phase includes the
+wait for the slowest warp; the scores, scores x v, r_in x S_in and output
+phases are warp 0's) and the median ms of one call on a busy card.
+Raises if an anchor is no longer in a source.
 """
 from __future__ import annotations
 
@@ -140,6 +147,46 @@ CHOL_MARKS = [
      "BMARK(k0 / S);"),
 ]
 
+WKV_HEADER = '''
+__device__ unsigned long long g_marks[1 << 16];
+#define MARK(id) \\
+  do { \\
+    if (blockIdx.x == 0 && threadIdx.x == 0 && mark_it < 4096) \\
+      g_marks[mark_it * 16 + (id)] = clock64(); \\
+  } while (0)
+extern "C" int repro_marks_read(void* out) {
+  return cudaMemcpyFromSymbol(out, g_marks, sizeof(g_marks));
+}
+extern "C" int repro_marks_clear() {
+  static unsigned long long zero[1 << 16];
+  return cudaMemcpyToSymbol(g_marks, zero, sizeof(g_marks));
+}
+'''
+
+# (text in the source, mark before it (True) or after it, inserted text);
+# the phases end at marks 1 .. 8
+WKV_MARKS = [
+    ("  if (tid == 0) s_tk[0] = take_ticket(ticket, total);", True,
+     "int mark_it = -1;"),
+    ("  for (;; buf ^= 1) {", False, "if (mark_it >= 0) MARK(8);"),
+    ("    if (tk >= total) break;", False, "++mark_it;\nMARK(0);"),
+    ("    // the next tile's rows into L2, a 128-byte line a thread", True,
+     "MARK(1);"),
+    ("    // 2. k_fwd^T v: this part's rows, in order", True, "MARK(2);"),
+    ("    // 3. the state chain: wait for S_in, publish S_out", True,
+     "MARK(3);"),
+    ("    {\n      // every thread 4 consecutive entries of S at a time", True,
+     "MARK(4);"),
+    ("    if (tid == 0) {\n      if (!last)", True, "MARK(5);"),
+    ("      // scores x v: half h of the warp", True, "MARK(6);"),
+    ("#pragma unroll\n      for (int x = 0; x < 8; ++x) {\n"
+     "        const int t = x < 4 ? 4 * q1 + x : 4 * q2 + x - 4;\n"
+     "        if (t >= n", True, "MARK(7);"),
+]
+WKV_PHASES = ["loads", "prefetch, scan and factors", "k_fwd^T v",
+              "partials and chain wait", "state published",
+              "score rows and r_in x S_in", "scores x v", "out written"]
+
 TAIL = {"panel_qrcp": "to the next step",
         "panel_hessenberg": "GEMV, to the next column"}
 
@@ -167,7 +214,7 @@ def instrument_steps(path: Path, marks) -> list[str]:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", default="qrcp,hessenberg,cholesky",
+    ap.add_argument("--only", default="qrcp,hessenberg,cholesky,wkv",
                     help="comma-separated kernels to mark")
     only = set(ap.parse_args().only.split(","))
     if not torch.cuda.is_available():
@@ -178,6 +225,7 @@ def main() -> int:
     from repro_torch.kernels import fused_panel_update as fpu
     from repro_torch.kernels import panel_hessenberg as ph
     from repro_torch.kernels import panel_qrcp as pq
+    from repro_torch.kernels import wkv6
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -197,6 +245,10 @@ def main() -> int:
         instrument(src / "fused_pu.cu", '#include "strip.cuh"\n', CHOL_HEADER,
                    CHOL_MARKS)
         libs.append("fused_pu")
+    if "wkv" in only:
+        instrument(src / "wkv6.cu", '#include "common.cuh"\n', WKV_HEADER,
+                   WKV_MARKS)
+        libs.append("wkv6")
     _build.CSRC, _build.BUILD_DIR = src, OUT / "lib"
     _build.sources = lambda: libs
     _build.build_all()
@@ -266,7 +318,38 @@ def main() -> int:
                       flush=True)
                 del panel, work
 
+    def wkv():
+        for dtype in (torch.bfloat16, torch.float32):
+            for what, bsz, seq in (("serve", 4, 1024),
+                                   ("prefill_32k", 1, 32768)):
+                gen = torch.Generator(device=dev).manual_seed(10)
+                shape = (bsz, 64, seq, 64)
+                r, k, v = (torch.randn(shape, generator=gen, device=dev)
+                           .to(dtype) for _ in range(3))
+                logw = -torch.exp(-0.6 + 0.42 * torch.randn(
+                    shape, generator=gen, device=dev))
+                u = 0.5 * torch.randn(64, 64, generator=gen, device=dev)
+                ms = busy_ms(lambda: wkv6.wkv6_fused(r, k, v, logw, u))
+                if _build.library("wkv6").repro_marks_clear() != 0:
+                    raise RuntimeError("panel_marks: clearing the marks "
+                                       "failed")
+                wkv6.wkv6_fused(r, k, v, logw, u)
+                torch.cuda.synchronize()
+                a = read("wkv6", 1 << 16).reshape(-1, 16)
+                a = a[: int((a[:, 0] > 0).sum()), :9]
+                phases = np.diff(a, axis=1)[1:].mean(0)   # tile 0 left out
+                tail = (a[1:, 0] - a[:-1, 8]).mean()
+                row = dict(zip(WKV_PHASES,
+                               (round(float(p)) for p in phases)))
+                row["to the next tile"] = round(float(tail))
+                print(json.dumps({"kernel": f"wkv6_fused {what}",
+                                  "dtype": str(dtype), "tiles": len(a),
+                                  "ms": ms, "cycles": row}), flush=True)
+                del r, k, v, logw, u
+
     dev = torch.device("cuda")
+    if "wkv" in only:
+        wkv()
     for dtype in (torch.float64, torch.float32):
         gen = torch.Generator(device=dev).manual_seed(0)
         cases = []

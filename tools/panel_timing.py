@@ -20,14 +20,21 @@ turns on one card:
   the global path's first block (16384 x 4096), 128 steps each;
 * ``hessenberg``: ``hessenberg_panel`` on ``gehrd``'s first panel at
   n 8192 (k 0), its middle one (k 4096) and the first at n 2048, 128
-  columns each.
+  columns each;
+* ``wkv``: ``wkv6_fused`` (bfloat16 and float32 r, k, v; chunk 128, head
+  dim 64, 64 heads) at the serving shape (batch 4, 1024 tokens), at
+  prefill_32k (batch 1, 32768 tokens) and on 1000 tokens from a state
+  (batch 4, s0 ~ N(0, 1)), r, k, v, logw and u drawn as ``chip_smoke.py``
+  draws them.
 
     python3 tools/panel_timing.py                       # this tree, all
     python3 tools/panel_timing.py --src OTHER/src       # another checkout
     python3 tools/panel_timing.py --only cholesky
+    python3 tools/panel_timing.py --only wkv
 
-The kernels work in place, so each run starts from a fresh copy of its
-operands and the copy's own time is subtracted.  Prints the card's name
+The panel kernels work in place, so each run starts from a fresh copy of
+its operands and the copy's own time is subtracted (``wkv6_fused`` does
+not: its calls are timed as they are).  Prints the card's name
 and power limit, then one JSON object: for each dtype and kernel shape,
 the median card ms on a busy card (``ms``: one call queued behind a sleep
 kernel, CUDA events) and of one call from an idle card (``call_ms``: host
@@ -46,6 +53,11 @@ import torch
 
 N, BLOCK, SEED = 8192, 128, 0
 QR_M, QR_N, HESS_SMALL = 16384, 4096, 2048
+#: wkv: (key, batch, tokens, from a state, repetitions); 64 heads of 64
+WKV_SHAPES = (("serve", 4, 1024, False, 20),
+              ("prefill_32k", 1, 32768, False, 5),
+              ("ragged", 4, 1000, True, 20))
+WKV_HEADS, WKV_DIM, WKV_CHUNK = 64, 64, 128
 
 
 def time_ms(fn, reps: int, busy: bool) -> float:
@@ -83,9 +95,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
                                          / "src"))
-    ap.add_argument("--only", default="lu,cholesky,qrcp,hessenberg",
+    ap.add_argument("--only", default="lu,cholesky,qrcp,hessenberg,wkv",
                     help="comma-separated groups: lu, cholesky, "
-                         "cholesky_wide, qrcp, hessenberg")
+                         "cholesky_wide, qrcp, hessenberg, wkv")
     args = ap.parse_args()
     groups = set(args.only.split(","))
     if not torch.cuda.is_available():
@@ -174,8 +186,35 @@ def main() -> int:
                 row[key] = in_place(
                     lambda a, k=k: panel_hessenberg.hessenberg_panel(
                         a, k, BLOCK), randn(n, n), 10 if n == N else 20)
-        res[str(dtype).replace("torch.", "")] = row
+        if row:
+            res[str(dtype).replace("torch.", "")] = row
         torch.cuda.empty_cache()
+    if "wkv" in groups:
+        from repro_torch.kernels import wkv6
+        for dtype in (torch.bfloat16, torch.float32):
+            row = {}
+            for key, bsz, seq, from_state, reps in WKV_SHAPES:
+                gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+                def randn(*shape):
+                    return torch.randn(shape, generator=gen, device=dev)
+
+                shape = (bsz, WKV_HEADS, seq, WKV_DIM)
+                r, k, v = (randn(*shape).to(dtype) for _ in range(3))
+                logw = -torch.exp(-0.6 + 0.42 * randn(*shape))
+                u = 0.5 * randn(WKV_HEADS, WKV_DIM)
+                s0 = randn(bsz, WKV_HEADS, WKV_DIM, WKV_DIM) if from_state \
+                    else None
+
+                def run():
+                    return wkv6.wkv6_fused(r, k, v, logw, u, s0=s0,
+                                           chunk=WKV_CHUNK)
+
+                row[key] = {"ms": time_ms(run, reps, True),
+                            "call_ms": time_ms(run, reps, False)}
+                del r, k, v, logw, u, s0
+            res["wkv_" + str(dtype).replace("torch.", "")] = row
+            torch.cuda.empty_cache()
     print(json.dumps(res))
     return 0
 
