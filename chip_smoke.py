@@ -89,6 +89,34 @@
    ``torch.linalg.eigvalsh``.
 9. ``gecon`` and ``getri`` at n = 2048: the condition estimate against
    the exact 1/(‖A‖₁·‖A⁻¹‖₁), and the scaled residual of the inverse.
+9a. ``ldlt_factor`` (unpivoted LDLᵀ; its PF the PyTorch-op diagonal sweep
+   and the unit right TRSM kernel, its TU the GEMM-accumulate kernel) at
+   n = 8192 on a symmetric quasi-definite input made on the card,
+   (G + Gᵀ)/2 + diag(±2n): ``mtb``/``la``/``la2``/``la_mb`` each bitwise
+   ``mtb``, ‖A − L·D·Lᵀ‖₁/(‖A‖₁·n·eps) and the ``solve`` residual for 16
+   right-hand sides under 100, D of both signs; wall ms beside
+   ``torch.linalg.ldl_factor`` + ``ldl_solve`` (cuSOLVER's pivoted
+   Bunch–Kaufman: the same n³/3 flops, a yardstick, not the same
+   function); one diagonal sweep of a 128 x 128 block beside the kernel
+   time of the rest of its PF; the traced PF/TU/PU/EPI shares under ``la``.
+   Each variant's ms in 9a–9c is the median of ``NEW_REPS`` calls, every
+   call bitwise ``mtb``'s first.
+9b. ``getri(method="gj")`` (Gauss–Jordan; M from the β = 0 GEMM, every
+   update the GEMM-accumulate kernel) at n = 8192 on G·Gᵀ + n·I:
+   ``mtb``/``la``/``la2`` bitwise ``mtb``, ‖A·X − I‖₁/(‖A‖₁·‖X‖₁·n·eps)
+   under 100, beside ``torch.linalg.inv``'s residual and wall ms; the
+   witnesses of the gap between the two (the left residual, the
+   ``backend="torch"`` residual, and the residual on A/(2n), which has a
+   unit diagonal scale); one diagonal-block inverse (PyTorch ops) beside
+   M's GEMM; traced shares.
+9c. two-sided band reduction (``qr_panel`` for the left QR and the right LQ
+   panels, the GEMMs for the updates) at n = 8192, w = 128: ``la`` bitwise
+   ``mtb``, every element outside the band exactly 0, ‖B‖_F within
+   100·n·eps of ‖A‖_F, and at n = 2048 the singular values against
+   ``torch.linalg.svdvals`` (float64): max|Δσ|/σ_max under 100·n·eps of
+   the input dtype (the reference's absolute bound, 200·n·eps·‖A‖_F,
+   printed beside it; in float32 it exceeds σ_max itself); wall
+   ms (8n³/3 flops; no library call computes it); traced shares.
 10. ``flash_attention`` against its plain version, bfloat16 and float32,
     at the serving shape (B 4, 40 query heads over 10 KV heads, S 1024,
     D 128, causal) and at one 32k sequence (prefill_32k's), on the
@@ -173,6 +201,9 @@ SMALL_N = 128                    # one panel: the fused small solve
 QR_STREAMED_M = 65536            # a QR panel too tall for the SMs' shared memory
 EIG_N = 512                      # gehrd + eigvals of a symmetric input
 COND_N = 2048                    # gecon and getri
+BAND_W = 128                     # band reduction's output bandwidth
+SV_N = 2048                      # band reduction against svdvals
+NEW_REPS = 3                     # timed calls of each variant in 9a-9c
 SEED = 0
 ARCH = "phi3-medium-14b"         # the serving path: full width and depth
 SERVE_BATCH, PROMPT, NEW_TOKENS = 4, 1024, 64
@@ -258,6 +289,9 @@ def main() -> int:
     from repro_torch.core.cholesky import cholesky_blocked, cholesky_unblocked
     from repro_torch.core.cholesky import cholesky_panel as op_cholesky_panel
     from repro_torch.core import qr
+    from repro_torch.core.gauss_jordan import gj_inverse_unblocked
+    from repro_torch.core.ldlt import ldlt_panel, ldlt_unblocked
+    from repro_torch.core.lookahead import get_variant
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -270,7 +304,8 @@ def main() -> int:
     from repro_torch.obs import tracer
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     from repro_torch.solve import (cholesky_factor, gecon, gehrd, geqp3,
-                                   gesv, getri, lu_factor, qr_factor)
+                                   gesv, getri, ldlt_factor, lu_factor,
+                                   qr_factor)
 
     dev = torch.device("cuda")
 
@@ -1005,10 +1040,10 @@ def main() -> int:
 
     # ---- 4. the main path through the entry points -------------------------
     def emit_trace(path, variant, dtype, run, n=N):
-        """PF/TU/PU/SWAP shares of one traced factor (spans fenced)."""
+        """PF/TU/PU/SWAP/EPI shares of one traced factor (spans fenced)."""
         with tracer.trace() as tr:
             run()
-        cats = ("PF", "TU", "PU", "SWAP")
+        cats = tuple(c for c in tracer.CATEGORIES if c != "drive")
         total = sum(tr.total(c) for c in cats)
         emit({"phase": f"trace_{variant}", "path": path, "dtype": str(dtype),
               "n": n, "seconds": {c: tr.total(c) for c in cats},
@@ -1641,12 +1676,311 @@ def main() -> int:
         check(counts_cond[name] > 0, f"kernel {name} was not launched on the "
               "gecon/getri path")
     counts = {k: counts[k] + counts_cond[k] for k in counts}
+
+    # ---- 9a. ldlt: unpivoted LDLᵀ of a symmetric quasi-definite input -----
+    def one_norm(x):
+        return float(torch.linalg.matrix_norm(x.double(), 1))
+
+    new_paths = {"ldlt": {}, "getri_gj": {}, "band_reduction": {}}
+    ops.reset_launches()
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+        g = torch.randn(N, N, generator=gen, device=dev, dtype=dtype)
+        a = (g + g.mT) / 2
+        del g
+        # every third diagonal entry -2n, the others +2n: the sign pattern
+        # of the reference's quasi-definite conformance input
+        signs = torch.ones(N, dtype=dtype, device=dev)
+        signs[::3] = -1.0
+        a.diagonal().add_(signs * (2.0 * N))
+        b = torch.randn(N, NRHS, generator=gen, device=dev, dtype=dtype)
+        eps = torch.finfo(dtype).eps
+        base = None
+        for variant in ("mtb", "la", "la2", "la_mb"):
+            factor_ms, solve_ms = [], []
+            for rep in range(NEW_REPS):
+                sync()
+                t0 = time.perf_counter()
+                fac = ldlt_factor(a, BLOCK, variant=variant)
+                sync()
+                t1 = time.perf_counter()
+                x = fac.solve(b)
+                sync()
+                t2 = time.perf_counter()
+                factor_ms.append((t1 - t0) * 1e3)
+                solve_ms.append((t2 - t1) * 1e3)
+                if base is None:
+                    base = fac
+                else:
+                    check(torch.equal(fac.packed, base.packed),
+                          f"ldlt {variant} {dtype} call {rep}: factor "
+                          "differs from mtb's")
+            res = scaled_residual(a, x, b, dtype)
+            check(res < RESIDUAL_LIMIT, f"ldlt {variant} {dtype}: residual "
+                  f"{res}")
+            extra = {}
+            if variant == "mtb":
+                l = torch.tril(base.packed.double(), -1)
+                l.diagonal().fill_(1.0)
+                d = torch.diagonal(base.packed).double()
+                recon = one_norm(a.double() - (l * d) @ l.mT) / (
+                    one_norm(a) * N * eps)
+                del l
+                negative = int((d < 0).sum())
+                check(recon < RESIDUAL_LIMIT, f"ldlt {dtype}: ‖A − LDLᵀ‖₁/"
+                      f"(‖A‖₁·n·eps) {recon}")
+                check(0 < negative < N, f"ldlt {dtype}: D has {negative} "
+                      "negative entries, expected both signs")
+                extra = {"reconstruction": recon, "negative_d": negative}
+            fms = statistics.median(factor_ms)
+            emit({"phase": "ldlt", "dtype": str(dtype), "n": N,
+                  "block": BLOCK, "nrhs": NRHS, "variant": variant,
+                  "factor_ms": fms, "factor_ms_calls": factor_ms,
+                  "solve_ms": statistics.median(solve_ms),
+                  "factor_gflops": chol_flops / fms * 1e3 / 1e9,
+                  "scaled_residual": res, "bitwise_equal_to_mtb": True,
+                  **extra})
+        del fac, x, base
+
+        # the library yardstick: cuSOLVER's Bunch–Kaufman sytrf + sytrs, the
+        # same n³/3 flops but pivoted (another function), warmed up
+        no_tf32()
+        torch.linalg.ldl_solve(*torch.linalg.ldl_factor(a), b)
+        factor_ms, solve_ms = [], []
+        for _ in range(NEW_REPS):
+            sync()
+            t0 = time.perf_counter()
+            ld, piv = torch.linalg.ldl_factor(a)
+            sync()
+            t1 = time.perf_counter()
+            x = torch.linalg.ldl_solve(ld, piv, b)
+            sync()
+            t2 = time.perf_counter()
+            factor_ms.append((t1 - t0) * 1e3)
+            solve_ms.append((t2 - t1) * 1e3)
+        fms = statistics.median(factor_ms)
+        emit({"phase": "ldlt_library", "dtype": str(dtype), "n": N,
+              "call": "torch.linalg.ldl_factor + ldl_solve (Bunch-Kaufman, "
+                      "pivoted)",
+              "factor_ms": fms, "factor_ms_calls": factor_ms,
+              "solve_ms": statistics.median(solve_ms),
+              "factor_gflops": chol_flops / fms * 1e3 / 1e9,
+              "scaled_residual": scaled_residual(a, x, b, dtype)})
+        del ld, piv, x
+
+        # the PF's diagonal sweep (PyTorch ops, once a panel) beside the
+        # kernel time of the rest of the PF (the unit right TRSM and the
+        # division by D) on the factor's first panel; these timing launches
+        # are not the path's
+        bank(new_paths["ldlt"])
+        blk0 = a[:BLOCK, :BLOCK].clone()
+        blk = torch.empty_like(blk0)
+        sweep_ms = time_ms(lambda: ldlt_unblocked(blk.copy_(blk0)), 5)
+        col0 = a[:, :BLOCK].contiguous()
+        fac0 = ldlt_unblocked(blk0.clone())
+        below0 = col0[BLOCK:].clone()
+        below = torch.empty_like(below0)
+
+        def rest():
+            ops.trsm(fac0, below.copy_(below0), side="right", lower=True,
+                     trans=True, unit_diagonal=True, out=below)
+            return below.div_(torch.diagonal(fac0)[None, :])
+
+        rest_ms = (time_ms(rest, 10)
+                   - time_ms(lambda: below.copy_(below0), 10))
+        work = torch.empty_like(col0)
+        panel_ms = time_ms(lambda: ldlt_panel(work.copy_(col0), BLOCK), 5)
+        emit({"phase": "ldlt_panel", "dtype": str(dtype), "block": BLOCK,
+              "shape": [N, BLOCK], "sweep_ms_per_call": sweep_ms,
+              "rest_kernel_ms": rest_ms, "panel_ms": panel_ms,
+              "calls_per_factor": npanels,
+              "sweep_ms_per_factor": sweep_ms * npanels})
+        del blk0, blk, col0, fac0, below0, below, work
+        ops.reset_launches()
+        emit_trace("ldlt", "la", dtype,
+                   lambda: ldlt_factor(a, BLOCK, variant="la"))
+        del a, b
+    bank(new_paths["ldlt"])
+    for name in ("trsm_right_lower_t", "gemm_accum", "trsm"):
+        check(new_paths["ldlt"].get(name, 0) > 0, f"kernel {name} was not "
+              "launched on the ldlt path")
+
+    # ---- 9b. getri(method="gj"): Gauss–Jordan inversion of an SPD input --
+    gj_flops = 2.0 * N ** 3
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+        g = torch.randn(N, N, generator=gen, device=dev, dtype=dtype)
+        a = torch.matmul(g, g.mT)
+        del g
+        a.diagonal().add_(float(N))
+        eps = torch.finfo(dtype).eps
+        eye = torch.eye(N, dtype=torch.float64, device=dev)
+
+        def inv_residual(x, a=a, left=False):
+            """‖A·X − I‖₁ (or ‖X·A − I‖₁) / (‖A‖₁·‖X‖₁·n·eps)."""
+            ax = x.double() @ a.double() if left else a.double() @ x.double()
+            return one_norm(ax - eye) / (one_norm(a) * one_norm(x) * N * eps)
+
+        base = None
+        for variant in ("mtb", "la", "la2"):
+            inverse_ms = []
+            for rep in range(NEW_REPS):
+                sync()
+                t0 = time.perf_counter()
+                x = getri(a, BLOCK, variant=variant, method="gj")
+                sync()
+                inverse_ms.append((time.perf_counter() - t0) * 1e3)
+                if base is None:
+                    base = x
+                else:
+                    check(torch.equal(x, base), f"getri gj {variant} {dtype} "
+                          f"call {rep}: inverse differs from mtb's")
+            extra = {}
+            if variant == "mtb":
+                resid = inv_residual(base)
+                check(resid < RESIDUAL_LIMIT, f"getri gj {dtype}: residual "
+                      f"{resid}")
+                extra = {"scaled_residual": resid,
+                         "left_scaled_residual": inv_residual(base,
+                                                              left=True)}
+            ims = statistics.median(inverse_ms)
+            emit({"phase": "getri_gj", "dtype": str(dtype), "n": N,
+                  "block": BLOCK, "variant": variant, "inverse_ms": ims,
+                  "inverse_ms_calls": inverse_ms,
+                  "gflops": gj_flops / ims * 1e3 / 1e9,
+                  "bitwise_equal_to_mtb": True, **extra})
+        del x, base
+        # torch.linalg.inv (cuSOLVER getrf + getrs on I), warmed up
+        torch.linalg.inv(a)
+        inverse_ms = []
+        for _ in range(NEW_REPS):
+            sync()
+            t0 = time.perf_counter()
+            xi = torch.linalg.inv(a)
+            sync()
+            inverse_ms.append((time.perf_counter() - t0) * 1e3)
+        ims = statistics.median(inverse_ms)
+        emit({"phase": "getri_gj_library", "dtype": str(dtype), "n": N,
+              "call": "torch.linalg.inv", "inverse_ms": ims,
+              "inverse_ms_calls": inverse_ms,
+              "gflops": gj_flops / ims * 1e3 / 1e9,
+              "scaled_residual": inv_residual(xi),
+              "left_scaled_residual": inv_residual(xi, left=True)})
+        del xi
+        # Witnesses of the gap to inv's residual.  The blocked sweep forms
+        # the panel's own rows as A[kr, :] − (I − D⁻¹)·A[kr, :], so their
+        # rounding scales with |A[kr, :]|, about |D| times the result's:
+        # the same residual from the library GEMMs (backend "torch") and
+        # from the reference's formulation, and a small one on A/(2n),
+        # whose diagonal is of order 1.
+        x = getri(a, BLOCK, method="gj", backend="torch")
+        torch_resid = inv_residual(x)
+        a_unit = a / (2.0 * N)
+        x = getri(a_unit, BLOCK, method="gj")
+        unit_resid = inv_residual(x, a=a_unit)
+        emit({"phase": "getri_gj_witness", "dtype": str(dtype), "n": N,
+              "torch_backend_scaled_residual": torch_resid,
+              "unit_scale_scaled_residual": unit_resid,
+              "unit_scale_inv_scaled_residual": inv_residual(
+                  torch.linalg.inv(a_unit), a=a_unit)})
+        del x, a_unit
+
+        # the PF's diagonal-block inverse (PyTorch ops, once a panel) beside
+        # the kernel time of the rest of the PF, M's β = 0 GEMM
+        bank(new_paths["getri_gj"])
+        blk0 = a[:BLOCK, :BLOCK].clone()
+        blk = torch.empty_like(blk0)
+        inv_ms = time_ms(lambda: gj_inverse_unblocked(blk.copy_(blk0)), 5)
+        dinv = gj_inverse_unblocked(blk0.clone())
+        p = a[:, :BLOCK].clone()
+        p[:BLOCK].diagonal().sub_(1.0)
+        m_out = torch.empty_like(p)
+        gemm_ms = time_ms(lambda: blis_gemm.gemm(p, dinv, out=m_out), 10)
+        emit({"phase": "gj_panel", "dtype": str(dtype), "block": BLOCK,
+              "shape": [N, BLOCK], "inverse_ms_per_call": inv_ms,
+              "gemm_kernel_ms": gemm_ms, "calls_per_factor": npanels,
+              "inverse_ms_per_factor": inv_ms * npanels})
+        del blk0, blk, dinv, p, m_out
+        ops.reset_launches()
+        emit_trace("getri_gj", "la", dtype, lambda: getri(
+            a, BLOCK, variant="la", method="gj"))
+        del a, eye
+    bank(new_paths["getri_gj"])
+    check(new_paths["getri_gj"].get("gemm_accum", 0) > 0,
+          "kernel gemm_accum was not launched on the getri_gj path")
+
+    # ---- 9c. band_reduction: two-sided reduction to band form, w 128 ------
+    band_flops = 8.0 * N ** 3 / 3.0
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+        a = torch.randn(N, N, generator=gen, device=dev, dtype=dtype)
+        eps = torch.finfo(dtype).eps
+        base = None
+        for variant in ("mtb", "la"):
+            reduce_ms = []
+            for rep in range(NEW_REPS):
+                sync()
+                t0 = time.perf_counter()
+                band = get_variant("band_reduction", variant)(a, BAND_W)
+                sync()
+                reduce_ms.append((time.perf_counter() - t0) * 1e3)
+                if base is None:
+                    base = band
+                else:
+                    check(torch.equal(band, base), f"band_reduction "
+                          f"{variant} {dtype} call {rep}: band differs from "
+                          "mtb's")
+            extra = {}
+            if variant == "mtb":
+                check(not bool(torch.tril(base, -1).any())
+                      and not bool(torch.triu(base, BAND_W + 1).any()),
+                      f"band_reduction {dtype}: an element outside the band "
+                      "is not 0")
+                gap = abs(fro(base) - fro(a)) / (fro(a) * N * eps)
+                check(gap < RESIDUAL_LIMIT, f"band_reduction {dtype}: "
+                      f"| ‖B‖_F − ‖A‖_F | / (‖A‖_F·n·eps) {gap}")
+                extra = {"outside_band_zero": True, "frobenius_gap": gap}
+            rms = statistics.median(reduce_ms)
+            emit({"phase": "band_reduction", "dtype": str(dtype), "n": N,
+                  "w": BAND_W, "variant": variant, "reduce_ms": rms,
+                  "reduce_ms_calls": reduce_ms,
+                  "gflops": band_flops / rms * 1e3 / 1e9,
+                  "bitwise_equal_to_mtb": True, **extra})
+        del band, base
+        # the singular values at SV_N (an n = 8192 SVD costs too much time)
+        # against torch.linalg.svdvals, both in float64: max|Δσ| / σ_max
+        # under 100·n·eps of the input dtype.  The bound of the reference's
+        # _check_band_reduction, 200·max(n, 8)·eps·‖A‖_F, is recorded beside
+        # it; in float32 at this n it exceeds σ_max, so it gates nothing.
+        a2 = a[:SV_N, :SV_N].contiguous()
+        band2 = get_variant("band_reduction", "la")(a2, BAND_W)
+        sv_ref = torch.linalg.svdvals(a2.double())
+        sv_err = float((torch.linalg.svdvals(band2.double())
+                        - sv_ref).abs().max())
+        sv_max = float(sv_ref[0])
+        sv_rel = sv_err / sv_max
+        sv_limit = RESIDUAL_LIMIT * SV_N * eps
+        check(sv_rel < sv_limit, f"band_reduction {dtype}: singular values "
+              f"max|Δσ|/σ_max {sv_rel} from svdvals, limit {sv_limit}")
+        emit({"phase": "band_reduction_svdvals", "dtype": str(dtype),
+              "n": SV_N, "w": BAND_W, "max_abs_err": sv_err,
+              "sigma_max": sv_max, "rel_err": sv_rel, "limit": sv_limit,
+              "reference_bound": 200.0 * SV_N * eps * fro(a2)})
+        del a2, band2
+        emit_trace("band_reduction", "la", dtype,
+                   lambda: get_variant("band_reduction", "la")(a, BAND_W))
+        del a
+    bank(new_paths["band_reduction"])
+    for name in ("qr_panel", "gemm_accum"):
+        check(new_paths["band_reduction"].get(name, 0) > 0, f"kernel {name} "
+              "was not launched on the band_reduction path")
+    emit({"phase": "new_paths_launches", **new_paths})
+    counts = {k: counts[k] + sum(p.get(k, 0) for p in new_paths.values())
+              for k in counts}
     for name, count in counts.items():
         if name not in SERVING_KERNELS:   # checked on the serving paths
-            # trsm_right_lower_t is on no default path: its own (posv mtb
-            # with the PyTorch-op panel) was read in a window of its own
-            check(count > 0 or counts_op_panel.get(name, 0) > 0,
-                  f"kernel {name} was not launched on the main paths")
+            check(count > 0, f"kernel {name} was not launched on the main "
+                  "paths")
 
     # ---- 10. flash attention against its plain version ---------------------
     torch.cuda.empty_cache()
@@ -2222,11 +2556,10 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{sources[name]}",
             "replaces": replaces[name], "launches": counts[name],
+            # of which on this slice's paths
+            "new_paths_launches": {path: c.get(name, 0)
+                                   for path, c in new_paths.items()},
             **at_shape(name)})
-        if not counts[name] and counts_op_panel.get(name):
-            # on no default path: the launches of the path that runs it
-            kernels[-1].update(launches=counts_op_panel[name],
-                               launch_path="posv mtb, PyTorch-op panel")
         if name == "gemm_accum":   # beta = 0, and the gels paths' products
             kernels[-1]["shapes"] = {key: at_shape(key) for key in (
                 "gemm", "gemm_gels_vtc", "gemm_gels_vtc_pu", "gemm_gels_vtb",

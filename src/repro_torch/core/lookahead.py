@@ -1,7 +1,8 @@
 """Variant registry: scheduling variants by name.
 
-The port of :mod:`repro.core.lookahead`, for the DMFs ported so far (LU,
-Cholesky, QR, global QRCP, windowed ``qrcp_local`` and Hessenberg):
+The port of :mod:`repro.core.lookahead`, for all nine DMFs of the
+reference (LU, Cholesky, QR, LDLᵀ, Gauss–Jordan inversion, band
+reduction, global QRCP, windowed ``qrcp_local`` and Hessenberg):
 
     fn = get_variant("lu", "la")          # -> lu_lookahead
     fn = get_variant("lu", "la2")         # -> lu_lookahead with depth=2
@@ -10,8 +11,11 @@ Cholesky, QR, global QRCP, windowed ``qrcp_local`` and Hessenberg):
 ``"la<d>"`` / ``"la_mb<d>"`` resolve the look-ahead driver with ``depth=d``
 (d panels in flight); ``"la"`` ≡ ``"la1"``.  ``la_mb`` plugs the fused
 panel-update kernel into the look-ahead driver; a DMF without one (QR,
-``qrcp_local``) gets its ``la`` driver.  Global QRCP and Hessenberg have
-no look-ahead variant by policy (:data:`LOOKAHEAD_EXCLUDED`):
+LDLᵀ, Gauss–Jordan, band reduction, ``qrcp_local``) gets its ``la``
+driver.  Band reduction keeps its own two-panel loop and stays depth-1:
+``"la2"`` and deeper raise ``KeyError`` for it.  Global QRCP and
+Hessenberg have no look-ahead variant by policy
+(:data:`LOOKAHEAD_EXCLUDED`):
 ``"la"``/``"la<d>"``/``"la_mb"`` raise ``KeyError`` with the reason.  The
 reference's ``tuned`` (autotuner cache) and ``tiled`` (tile-DAG) variants
 are not ported yet and raise ``KeyError`` naming the ROADMAP item that
@@ -22,7 +26,8 @@ from __future__ import annotations
 import re
 from typing import Callable, Dict, Tuple
 
-from repro_torch.core import cholesky, hessenberg, lu, qr, qrcp
+from repro_torch.core import (band_reduction, cholesky, gauss_jordan,
+                              hessenberg, ldlt, lu, qr, qrcp)
 from repro_torch.core.backend import resolve_backend
 from repro_torch.core.pipeline import supports_depth
 
@@ -41,6 +46,18 @@ _REGISTRY: Dict[str, Dict[str, Callable]] = {
         "mtb": qr.qr_blocked,
         "rtm": qr.qr_tiled,
         "la": qr.qr_lookahead,
+    },
+    "ldlt": {
+        "mtb": ldlt.ldlt_blocked,
+        "la": ldlt.ldlt_lookahead,
+    },
+    "gauss_jordan": {
+        "mtb": gauss_jordan.gj_inverse_blocked,
+        "la": gauss_jordan.gj_inverse_lookahead,
+    },
+    "band_reduction": {
+        "mtb": band_reduction.band_reduction_blocked,
+        "la": band_reduction.band_reduction_lookahead,
     },
     # no "la" row by policy (LOOKAHEAD_EXCLUDED), not by omission
     "qrcp": {
@@ -119,9 +136,14 @@ def list_variants(dmf: str) -> tuple[str, ...]:
     return tuple(out)
 
 
-def _with_depth(fn: Callable, depth: int) -> Callable:
+def _with_depth(dmf: str, fn: Callable, depth: int) -> Callable:
     if depth == 1:
         return fn
+    if not supports_depth(fn):
+        raise KeyError(
+            f"depth-{depth} look-ahead not available for {dmf!r}: its "
+            f"driver is not pipeline-backed (band reduction interleaves two "
+            f"coupled panels; DESIGN.md §10); have {list_variants(dmf)}")
 
     def deepened(a, b=128, **kw):
         # an explicit depth= that disagrees with the name would run another
@@ -139,13 +161,16 @@ def _with_depth(fn: Callable, depth: int) -> Callable:
 
 
 def _make_la_mb(dmf: str, la: Callable) -> Callable:
+    from repro_torch.kernels import ops as kops
+
+    if dmf not in kops.FUSED_PU:
+        return la                 # no fused panel update: la_mb is la
+
     def la_mb(a, b=128, **kw):
         # an explicit fused_pu= wins, then the backend's own registry
         # (Backend.fused_pu), then the CUDA kernels' — so backend="torch"
         # still runs the fused kernel, as the reference's jnp backend still
         # calls its Pallas kernel
-        from repro_torch.kernels import ops as kops
-
         if "fused_pu" not in kw:
             default = kops.FUSED_PU.get(dmf)
             reg = resolve_backend(kw.get("backend", "cuda")).fused_pu
@@ -172,8 +197,8 @@ def get_variant(dmf: str, variant: str) -> Callable:
         raise KeyError(f"variant {variant!r} is not ported yet: "
                        f"{NOT_PORTED[base]}; have {list_variants(dmf)}")
     if base == "la_mb" and "la" in table:
-        return _make_la_mb(dmf, _with_depth(table["la"], depth))
-    if base not in table or (depth > 1 and not supports_depth(table[base])):
+        return _make_la_mb(dmf, _with_depth(dmf, table["la"], depth))
+    if base not in table:
         raise KeyError(f"variant {variant!r} not available for {dmf!r}; "
                        f"have {list_variants(dmf)}")
-    return _with_depth(table[base], depth)
+    return _with_depth(dmf, table[base], depth)

@@ -31,8 +31,14 @@ are exhausted) and ``la_unsafe`` (global QRCP and Hessenberg: the panel
 reads trailing data, so ``la`` would compute another factorization;
 ``factorize`` refuses it with the reason).
 
-Not ported yet: the hooks of the two-sided DMFs (Gauss–Jordan's
-``update_left``/``update_all``/``commit``), and the ``mesh=`` engine.
+Two-sided updates.  Gauss–Jordan inversion updates the columns left of
+the panel too and writes the panel's own columns last: ``update_left`` and
+``commit`` form the per-iteration epilogue (span ``EPI``), which every
+loop runs after an iteration's updates, the last panel's included; under
+``mtb`` a DMF with ``update_all`` issues its whole update as that one
+bulk op instead.
+
+Not ported yet: the ``mesh=`` engine.
 """
 from __future__ import annotations
 
@@ -79,6 +85,15 @@ class StepOps:
       ``st_next``'s columns and its ``factor`` in one call of ``fused``,
       which writes its results into the working copy in place.  Only
       consulted when the caller passes ``fused_pu=``.
+    * ``update_left(state, ctx, st, backend) -> state`` (optional) — apply
+      panel ``st``'s transform to the columns left of it, ``[0, st.k)``
+      (Gauss–Jordan's two-sided update); part of the epilogue.
+    * ``update_all(state, ctx, st, backend) -> state`` (optional) — the
+      whole iteration's update, every column and the commit, as ``mtb``'s
+      one bulk op.
+    * ``commit(state, ctx, st, backend) -> state`` (optional) — write the
+      panel's final columns (Gauss–Jordan's ``I − M``); the epilogue's
+      last op.
     * ``stop(state, st) -> bool`` (optional) — end the traversal at
       ``st`` (QR on ``m < n`` inputs, once the rows are exhausted).
     * ``can_factor(state, st) -> bool`` (optional) — whether panel ``st``
@@ -97,6 +112,9 @@ class StepOps:
     swap: Optional[Callable[..., State]] = None
     tiles: Optional[Callable[..., State]] = None
     pu: Optional[Callable[..., Tuple[State, Any]]] = None
+    update_left: Optional[Callable[..., State]] = None
+    update_all: Optional[Callable[..., State]] = None
+    commit: Optional[Callable[..., State]] = None
     stop: Optional[Callable[[State, PanelStep], bool]] = None
     can_factor: Optional[Callable[[State, PanelStep], bool]] = None
     width: Callable[[torch.Tensor], int] = lambda a: a.shape[0]
@@ -167,10 +185,29 @@ def _call(tr, cat, name, thunk, **tags):
     return thunk() if tr is None else tr.wrap(cat, name, thunk, **tags)
 
 
+def _epilogue(tr, ops: StepOps, state, ctx, st, backend, i):
+    """The per-iteration epilogue: ``update_left`` (past the first panel),
+    then ``commit``; spanned only where a DMF declares either."""
+    if ops.update_left is None and ops.commit is None:
+        return state
+
+    def run():
+        s = state
+        if ops.update_left is not None and st.k > 0:
+            s = ops.update_left(s, ctx, st, backend)
+        if ops.commit is not None:
+            s = ops.commit(s, ctx, st, backend)
+        return s
+
+    return _call(tr, "EPI", f"EPI({i})", run, step=i, it=i)
+
+
 def _run_blocked(ops: StepOps, a, b, backend: Backend, panel_fn,
                  tiled: bool):
     """MTB: PF(k) ; SWAP(k) ; TU(k) over the whole trailing matrix as one
-    update — or, for RTM (``tiled``), fragmented into per-tile tasks."""
+    update — or, for RTM (``tiled``), fragmented into per-tile tasks — ;
+    EPI(k).  Under MTB a DMF with ``update_all`` issues it as the
+    iteration's one update instead of TU and EPI."""
     tr = _obs.active()
     n = ops.width(a)
     state = ops.init(a)
@@ -184,12 +221,18 @@ def _run_blocked(ops: StepOps, a, b, backend: Backend, panel_fn,
             state = _call(tr, "SWAP", f"SWAP({i})",
                           lambda: ops.swap(state, ctx, st, backend),
                           step=i, it=i)
+        if ops.update_all is not None and not tiled:
+            state = _call(tr, "TU", f"TU({i})",
+                          lambda: ops.update_all(state, ctx, st, backend),
+                          step=i, it=i, cols=(0, n))
+            continue
         if st.k_next < n:
             state = _call(
                 tr, "TU", f"TU({i})",
                 (lambda: ops.tiles(state, ctx, st, backend)) if tiled else
                 (lambda: ops.update(state, ctx, st, st.k_next, n, backend)),
                 step=i, it=i, cols=(st.k_next, n), tiles=tiled)
+        state = _epilogue(tr, ops, state, ctx, st, backend, i)
     return ops.finalize(state)
 
 
@@ -222,7 +265,12 @@ def _run_la(ops: StepOps, a, b, depth, backend: Backend, panel_fn,
             state = _call(tr, "SWAP", f"SWAP({i})",
                           lambda: ops.swap(state, ctx, st, backend),
                           step=i, it=i)
-        if ops._stop(state, st) or st.k_next >= n:
+        if ops._stop(state, st):
+            break
+        if st.k_next >= n:
+            # the last panel's epilogue (Gauss–Jordan: its update of every
+            # column to its left, and its commit)
+            state = _epilogue(tr, ops, state, ctx, st, backend, i)
             break
 
         # PU chain: narrow updates of the next `dd` panels' columns;
@@ -261,6 +309,7 @@ def _run_la(ops: StepOps, a, b, depth, backend: Backend, panel_fn,
             state = _call(tr, "TU", f"TU({i})",
                           lambda: ops.update(state, ctx, st, r0, n, backend),
                           step=i, it=i, cols=(r0, n), inflight=dd)
+        state = _epilogue(tr, ops, state, ctx, st, backend, i)
         if nctx is not _MISSING:
             ctx = nctx
     return ops.finalize(state)

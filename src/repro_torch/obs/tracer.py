@@ -5,9 +5,12 @@ execution traces: timelines showing the panel factorization PF(k+1) hidden
 under the bulk trailing update TU_k^R once static look-ahead is embedded.
 Every hook invocation of :mod:`repro_torch.core.pipeline` (and the driver
 layer above it) becomes a :class:`Span` tagged with its category, panel
-index, owning iteration and in-flight depth.  Categories: ``PF`` (panel factorization), ``TU`` (bulk
-trailing update), ``PU`` (narrow update of a panel in flight), ``SWAP``
-(row interchanges) and ``drive`` (a whole driver call).
+index, owning iteration and in-flight depth.  Categories
+(:data:`CATEGORIES`): ``PF`` (panel factorization), ``TU`` (bulk trailing
+update), ``PU`` (narrow update of a panel in flight), ``SWAP`` (row
+interchanges), ``EPI`` (the per-iteration epilogue of a two-sided DMF:
+Gauss–Jordan's update of the columns left of the panel and its commit)
+and ``drive`` (a whole driver call).
 
 * **Disabled is free and bitwise-invisible.**  No tracer installed ⇒ every
   instrumented site runs its original call behind a single
@@ -25,7 +28,10 @@ import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional
 
-__all__ = ["Span", "Tracer", "trace", "active"]
+__all__ = ["Span", "Tracer", "trace", "active", "CATEGORIES"]
+
+#: The span categories the engine and the drivers emit.
+CATEGORIES = ("PF", "TU", "PU", "SWAP", "EPI", "drive")
 
 #: The currently installed tracer (None = tracing disabled, the default).
 _ACTIVE: Optional["Tracer"] = None

@@ -1,10 +1,8 @@
 """LAPACK-style drivers built on the DMF layer: ``lu_factor``, ``gesv``,
-``cholesky_factor``, ``posv``, ``qr_factor``, ``geqp3``, ``gels``,
-``gehrd``, ``getri`` and ``gecon``.
+``cholesky_factor``, ``posv``, ``ldlt_factor``, ``qr_factor``, ``geqp3``,
+``gels``, ``gehrd``, ``getri`` and ``gecon``.
 
-The port of :mod:`repro.solve.drivers` for LU, Cholesky, QR, QRCP and
-Hessenberg (``ldlt_factor`` and ``getri(method="gj")`` wait for LDLᵀ and
-Gauss–Jordan, ROADMAP Queue 1 item 11).  All take
+The port of :mod:`repro.solve.drivers`.  All take
 ``variant=`` (``mtb``/``rtm``/``la``/``la<d>``/``la_mb``, resolved by
 :func:`repro_torch.core.lookahead.get_variant`), ``depth=``, ``backend=``
 (``"cuda"`` — the hand-written kernels, the default — or ``"torch"`` — the
@@ -24,10 +22,11 @@ from repro_torch.core.blocking import BlockSpec, normalize_block
 from repro_torch.core.lookahead import deepen, get_variant
 from repro_torch.obs import tracer as _obs
 from repro_torch.solve.factors import (CholeskyFactors, HessenbergFactors,
-                                       LUFactors, QRCPFactors, QRFactors)
+                                       LDLTFactors, LUFactors, QRCPFactors,
+                                       QRFactors)
 
-__all__ = ["lu_factor", "gesv", "cholesky_factor", "posv", "qr_factor",
-           "geqp3", "gels", "gehrd", "getri", "gecon"]
+__all__ = ["lu_factor", "gesv", "cholesky_factor", "posv", "ldlt_factor",
+           "qr_factor", "geqp3", "gels", "gehrd", "getri", "gecon"]
 
 _NO_MESH = ("mesh= (the distributed engine) is not ported yet: ROADMAP "
             "Queue 1 item 17")
@@ -91,6 +90,18 @@ def posv(a, b, block: BlockSpec = 128, *, variant: str = "la",
     """Solve ``A·X = B`` for symmetric positive-definite A (Cholesky)."""
     return cholesky_factor(a, block, variant=variant, depth=depth,
                            backend=backend, device=device).solve(b)
+
+
+@_traced
+def ldlt_factor(a, block: BlockSpec = 128, *, variant: str = "la",
+                depth: int = 1, backend="cuda", device=None) -> LDLTFactors:
+    """Factor ``A = L·D·Lᵀ`` for symmetric A without pivoting
+    (quasi-definite or diagonally dominant inputs)."""
+    be = resolve_backend(backend)
+    packed = get_variant("ldlt", _deepen(variant, depth))(
+        a, block, backend=be, device=device)
+    return LDLTFactors(packed=packed, block=normalize_block(block),
+                       backend=be)
 
 
 @_traced
@@ -186,15 +197,19 @@ def gehrd(a, block: BlockSpec = 128, *, variant: str = "mtb",
 @_traced
 def getri(a, block: BlockSpec = 128, *, variant: str = "la", depth: int = 1,
           backend="cuda", method: str = "lu", device=None):
-    """Matrix inverse: ``method="lu"`` factors with partial pivoting, then
-    solves for the n columns of I (GETRF + GETRI semantics)."""
+    """Matrix inverse.
+
+    ``method="lu"`` (the default) factors with partial pivoting, then
+    solves for the n columns of I (GETRF + GETRI semantics).
+    ``method="gj"``: one sweep of blocked Gauss–Jordan inversion, unpivoted,
+    for SPD and diagonally dominant inputs.
+    """
     if method == "lu":
         return lu_factor(a, block, variant=variant, depth=depth,
                          backend=backend, device=device).inverse()
     if method == "gj":
-        raise NotImplementedError(
-            "getri(method='gj') needs the Gauss-Jordan DMF, which is not "
-            "ported yet: ROADMAP Queue 1 item 11")
+        return get_variant("gauss_jordan", _deepen(variant, depth))(
+            a, block, backend=resolve_backend(backend), device=device)
     raise ValueError(f"method must be 'lu' or 'gj', got {method!r}")
 
 

@@ -2,10 +2,11 @@
 
 The port of :class:`repro.solve.factors.LUFactors`,
 :class:`~repro.solve.factors.CholeskyFactors`,
+:class:`~repro.solve.factors.LDLTFactors`,
 :class:`~repro.solve.factors.QRFactors`,
 :class:`~repro.solve.factors.QRCPFactors` and
 :class:`~repro.solve.factors.HessenbergFactors`: the packed GETRF / POTRF /
-GEQRF / GEQP3 / GEHRD output with the block size and backend it was built
+unpivoted LDLᵀ / GEQRF / GEQP3 / GEHRD output with the block size and backend it was built
 with, and the operations LAPACK derives from it (``solve``, transposed
 ``solve``, ``logdet``, ``inverse``; for GEHRD ``h``, ``q``,
 ``reconstruct``, ``similarity``, ``eigvals``).
@@ -16,7 +17,8 @@ matrix.  :meth:`LUFactors.from_numpy` takes the reference's ``lu`` and
 ``ipiv`` arrays (as NumPy) and recomputes ``perm``; :meth:`LUFactors.to_numpy`
 gives back ``(lu, ipiv, perm)``, which the reference's
 ``LUFactors.from_packed(lu, ipiv)`` accepts.  :class:`CholeskyFactors`
-carries its lower factor ``l`` the same way, :class:`QRFactors` its
+carries its lower factor ``l`` the same way, :class:`LDLTFactors` its
+``packed`` factor, :class:`QRFactors` its
 ``(packed, taus)``, :class:`QRCPFactors` its ``(packed, taus, jpvt)``
 and :class:`HessenbergFactors` its ``(packed, taus)``.  So a system
 factored by one package can be solved, or reduced further, by the other.
@@ -38,8 +40,8 @@ from repro_torch.core.qr import Panel, _pad_tau, apply_qt_blocked, \
 from repro_torch.device import resolve_device, working_copy
 from repro_torch.solve.triangular import lu_solve_packed, trsm_blocked
 
-__all__ = ["LUFactors", "CholeskyFactors", "QRFactors", "QRCPFactors",
-           "HessenbergFactors"]
+__all__ = ["LUFactors", "CholeskyFactors", "LDLTFactors", "QRFactors",
+           "QRCPFactors", "HessenbergFactors"]
 
 
 def _rhs(b, like: torch.Tensor, n: int) -> tuple[torch.Tensor, bool]:
@@ -174,6 +176,56 @@ class CholeskyFactors:
         """``A⁻¹`` via n simultaneous solves."""
         return self.solve(torch.eye(self.n, dtype=self.l.dtype,
                                     device=self.l.device))
+
+
+@dataclasses.dataclass(frozen=True)
+class LDLTFactors:
+    """Unpivoted LDLᵀ: unit-lower L strictly below the diagonal, D on it."""
+
+    packed: torch.Tensor
+    backend: Backend
+    block: BlockSpec = 128
+
+    @classmethod
+    def from_numpy(cls, packed, *, block: BlockSpec = 128, device=None,
+                   backend: Union[str, Backend] = "cuda") -> "LDLTFactors":
+        """Factors from a NumPy array (e.g. the reference's ``packed``), on
+        ``device`` (None = the GPU)."""
+        return cls(packed=working_copy(packed, resolve_device(device)),
+                   block=block, backend=resolve_backend(backend))
+
+    def to_numpy(self) -> np.ndarray:
+        """``packed`` as a NumPy array."""
+        return self.packed.cpu().numpy()
+
+    @property
+    def n(self) -> int:
+        return self.packed.shape[0]
+
+    def solve(self, b, *, trans: bool = False) -> torch.Tensor:
+        """Solve ``A·X = B`` (A is symmetric, so ``trans`` changes nothing):
+        ``L·y = B`` (the unit-lower TRSM), ``z = D⁻¹·y``, then
+        ``Lᵀ·X = z``."""
+        del trans
+        b, was_vec = _rhs(b, self.packed, self.n)
+        y = trsm_blocked(self.packed, b, lower=True, unit_diagonal=True,
+                         block=self.block, backend=self.backend)
+        y /= torch.diagonal(self.packed)[:, None]
+        x = trsm_blocked(self.packed, y, lower=True, trans=True,
+                         unit_diagonal=True, block=self.block,
+                         backend=self.backend)
+        return x[:, 0] if was_vec else x
+
+    def logdet(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(sign, log|det A|)``: the product of D's signs and
+        ``Σ log|d_i|``."""
+        d = torch.diagonal(self.packed)
+        return torch.prod(torch.sign(d)), torch.sum(torch.log(torch.abs(d)))
+
+    def inverse(self) -> torch.Tensor:
+        """``A⁻¹`` via n simultaneous solves."""
+        return self.solve(torch.eye(self.n, dtype=self.packed.dtype,
+                                    device=self.packed.device))
 
 
 @dataclasses.dataclass(frozen=True)

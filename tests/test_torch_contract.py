@@ -17,14 +17,16 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced_config
-from repro_torch.core import cholesky, lookahead, lu
+from repro_torch.core import band_reduction, cholesky, gauss_jordan, ldlt, \
+    lookahead, lu
 from repro_torch.kernels import _build
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import api, convert
 from repro_torch.solve import (CholeskyFactors, HessenbergFactors,
-                               LUFactors, QRCPFactors, QRFactors,
-                               cholesky_factor, gecon, gehrd, geqp3, gels,
-                               gesv, getri, lu_factor, posv, qr_factor)
+                               LDLTFactors, LUFactors, QRCPFactors,
+                               QRFactors, cholesky_factor, gecon, gehrd,
+                               geqp3, gels, gesv, getri, ldlt_factor,
+                               lu_factor, posv, qr_factor)
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 PORT = SRC / "repro_torch"
@@ -32,6 +34,8 @@ PORT = SRC / "repro_torch"
 _CHILD = """
 import sys
 import repro_torch.solve, repro_torch.kernels.ops, repro_torch.obs
+import repro_torch.core.ldlt, repro_torch.core.gauss_jordan
+import repro_torch.core.band_reduction
 import repro_torch.configs, repro_torch.models.api, repro_torch.models.convert
 import repro_torch.serve.engine, repro_torch.serve.metrics
 import repro_torch.launch.serve
@@ -67,7 +71,9 @@ def test_no_source_file_imports_jax_or_the_reference():
             PORT / "configs" / "rwkv6_7b.py",
             PORT / "obs" / "metrics.py", PORT / "serve" / "engine.py",
             PORT / "serve" / "metrics.py",
-            PORT / "launch" / "serve.py"} <= set(files)
+            PORT / "launch" / "serve.py", PORT / "core" / "ldlt.py",
+            PORT / "core" / "gauss_jordan.py",
+            PORT / "core" / "band_reduction.py"} <= set(files)
     offenders = [str(f.relative_to(SRC)) for f in files
                  if _FORBIDDEN.search(f.read_text())]
     assert offenders == []
@@ -81,6 +87,10 @@ def test_no_source_file_imports_jax_or_the_reference():
                                    "geqp3", "qr_from_numpy",
                                    "qrcp_from_numpy", "gehrd", "gecon",
                                    "getri", "hessenberg_from_numpy",
+                                   "ldlt_factor", "getri_gj",
+                                   "ldlt_from_numpy", "ldlt_blocked",
+                                   "gj_inverse_blocked", "band_reduction",
+                                   "band_variant",
                                    "init_params", "init_decode_cache",
                                    "params_from_numpy", "serve_main",
                                    "serve_rwkv"])
@@ -113,6 +123,16 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(
         "getri": lambda: getri(a, 2),
         "hessenberg_from_numpy": lambda: HessenbergFactors.from_numpy(
             a, np.ones(4), block=2),
+        "ldlt_factor": lambda: ldlt_factor(a, 2),
+        "getri_gj": lambda: getri(a, 2, method="gj"),
+        "ldlt_from_numpy": lambda: LDLTFactors.from_numpy(a, block=2),
+        "ldlt_blocked": lambda: ldlt.ldlt_blocked(a, 2, backend="torch"),
+        "gj_inverse_blocked": lambda: gauss_jordan.gj_inverse_blocked(
+            a, 2, backend="torch"),
+        "band_reduction": lambda: band_reduction.band_reduction_blocked(
+            a, 2, backend="torch"),
+        "band_variant": lambda: lookahead.get_variant(
+            "band_reduction", "la")(a, 2),
         "init_params": lambda: api.init_params(small, 0),
         "init_decode_cache": lambda: api.init_decode_cache(small, 1, 8),
         "params_from_numpy": lambda: convert.params_from_numpy(
@@ -126,7 +146,11 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(
         calls[entry]()
 
 
-@pytest.mark.parametrize("driver", [gesv, posv, gels])
+@pytest.mark.parametrize("driver", [
+    gesv, posv, gels,
+    lambda a, b, blk, **kw: ldlt_factor(a, blk, **kw).solve(b),
+    lambda a, b, blk, **kw: getri(a, blk, method="gj", **kw)
+    @ torch.from_numpy(b)])
 def test_explicit_cpu_runs_and_returns_cpu_tensors(driver):
     x = driver(np.eye(4) * 4.0, np.ones((4, 1)), 2, device="cpu")
     assert x.device.type == "cpu"

@@ -14,7 +14,8 @@ QRCP pivots equal, on both QRCP routes; flash attention and WKV6 within
 elementwise bounds of their plain versions run in float64);
 whole solves keep the reference's 200·max(m,n,8)·eps, and every schedule
 of LU, Cholesky, QR, ``qrcp_local`` and Hessenberg gives bitwise the
-factors of ``mtb``.  Marked ``cuda``;
+factors of ``mtb``, as does every schedule of LDLᵀ, Gauss–Jordan and band
+reduction.  Marked ``cuda``;
 each test skips (inside the ``card`` fixture, never at import or
 collection) when no GPU is present.  On a machine with one:
 
@@ -26,7 +27,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import gauss_jordan
+from repro_torch.core.blocking import panel_steps
 from repro_torch.core.cholesky import cholesky_panel
+from repro_torch.core.lookahead import get_variant
 from repro_torch.core.qr import unpack_v
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.kernels import attention as attn
@@ -1709,3 +1713,100 @@ def test_reduced_rwkv_on_the_card_matches_the_cpu(card):
         assert float((lg[:, 0].cpu() - full_cpu[:, 40 + i]).abs().max()) \
             <= tol
     assert ops.launches()["wkv6_fused"] == 2 * cfg.num_layers
+
+
+# ---------------------------------------------------------------------------
+# LDLᵀ, Gauss–Jordan inversion and band reduction.
+# ---------------------------------------------------------------------------
+def _quasi_definite(n, dtype, device, seed):
+    """Symmetric, diagonally dominant, indefinite: the reference's recipe."""
+    g = _randn((n, n), torch.float64, device, seed)
+    signs = torch.where(torch.arange(n, device=device) % 3 == 0, -1.0, 1.0)
+    return ((g + g.mT) / 2 + torch.diag(signs * 2.0 * n)).to(dtype)
+
+
+#: DMF -> (input, the kernels its path must launch, its look-ahead variants)
+_NEW_DMFS = {
+    "ldlt": (_quasi_definite, ("trsm_right_lower_t", "gemm_accum"),
+             ("la", "la2", "la_mb")),
+    "gauss_jordan": (_spd, ("gemm_accum",), ("la", "la2", "la_mb")),
+    "band_reduction": (_randn, ("qr_panel", "gemm_accum"), ("la", "la_mb")),
+}
+
+
+def _new_dmf_input(dmf, n, dtype, device, seed):
+    make = _NEW_DMFS[dmf][0]
+    return make((n, n), dtype, device, seed) if make is _randn \
+        else make(n, dtype, device, seed)
+
+
+def _contract(dmf, a, out, b):
+    """The reference's contract for each DMF (``tests/conformance.py``), in
+    float64 on the card: relative residual (and for band reduction the
+    structure) over n·eps of the input dtype."""
+    n = a.shape[0]
+    eps = torch.finfo(a.dtype).eps
+    a64, out64 = a.double(), out.double()
+    if dmf == "ldlt":
+        assert float(torch.triu(out, 1).abs().max()) == 0.0
+        l = torch.tril(out64, -1) + torch.eye(n, dtype=torch.float64,
+                                             device=a.device)
+        d = torch.diagonal(out64)
+        return _rel((l * d) @ l.mT, a64) / (n * eps)
+    if dmf == "gauss_jordan":
+        eye = torch.eye(n, dtype=torch.float64, device=a.device)
+        return _rel(a64 @ out64, eye) / (n * eps)
+    i = torch.arange(n, device=a.device)
+    outside = (i[None, :] < i[:, None]) | (i[None, :] > i[:, None] + b)
+    assert float(out[outside].abs().max()) == 0.0
+    sv = torch.linalg.svdvals(a64)
+    return float((torch.linalg.svdvals(out64) - sv).abs().max()
+                 / sv.max()) / (n * eps)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dmf", list(_NEW_DMFS))
+@pytest.mark.parametrize("n,b", [(1024, 128), (1536, 384)])
+def test_new_dmfs_variants_bitwise_on_the_card(card, dtype, dmf, n, b):
+    """Every look-ahead variant bitwise ``mtb``; the path's kernels
+    launched; the reference's contract; within the reference tolerance of
+    ``backend="torch"`` (the library ops) on the card."""
+    a = _new_dmf_input(dmf, n, dtype, card, 60)
+    _, kernels, variants = _NEW_DMFS[dmf]
+    ops.reset_launches()
+    base = get_variant(dmf, "mtb")(a, b)
+    for variant in variants:
+        assert torch.equal(get_variant(dmf, variant)(a, b), base), variant
+    counts = ops.launches()
+    assert all(counts[k] > 0 for k in kernels), counts
+    assert _contract(dmf, a, base, b) < 100.0
+    lib = get_variant(dmf, "mtb")(a, b, backend="torch")
+    assert _rel(base, lib) < _tol(dtype, n, n)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gauss_jordan_in_place_update_equals_an_explicit_copy(card, dtype):
+    """GJE's update reads the row block ``A[kr, :]`` inside the columns it
+    writes, and the GEMM kernel writes in place with no alias check: the
+    hooks copy that block first.  The in-place sweep equals, bitwise, one
+    that gives every update operand as a copy of its own and writes a new
+    matrix."""
+    n, b = 1024, 128
+    a = _spd(n, dtype, card, 61)
+    got = get_variant("gauss_jordan", "mtb")(a, b)
+    ref = a.clone()
+    for st in panel_steps(n, b):
+        k, bk = st.k, st.bk
+        dinv = gauss_jordan.gj_inverse_unblocked(
+            ref[k : k + bk, k : k + bk].clone())
+        p = ref[:, k : k + bk].clone()
+        p[k : k + bk].diagonal().sub_(1.0)
+        m = ops.gemm(p, dinv)
+        new = blis_gemm.gemm_accum(ref.clone(), m,
+                                   ref[k : k + bk].clone())
+        new[:, k : k + bk] = -m
+        new[k : k + bk, k : k + bk].diagonal().add_(1.0)
+        ref = new
+    assert torch.equal(got, ref)
+    # and the look-ahead variant, whose column ranges take the same kernel
+    assert torch.equal(get_variant("gauss_jordan", "la2")(a, b), ref)

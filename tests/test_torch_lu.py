@@ -170,7 +170,10 @@ def test_variant_registry():
     with pytest.raises(KeyError, match="Queue 1 item 15"):
         lookahead.get_variant("cholesky", "tiled")
     with pytest.raises(KeyError, match="unknown DMF"):
-        lookahead.get_variant("ldlt", "la")      # not ported yet
+        lookahead.get_variant("svd", "la")
+    assert set(lookahead.FACTORIZATIONS) == {
+        "lu", "cholesky", "qr", "ldlt", "gauss_jordan", "band_reduction",
+        "qrcp", "qrcp_local", "hessenberg"}
     with pytest.raises(KeyError, match="excluded by policy"):
         lookahead.get_variant("qrcp", "la")
     with pytest.raises(KeyError):
