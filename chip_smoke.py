@@ -117,6 +117,29 @@
    the input dtype (the reference's absolute bound, 200·n·eps·‖A‖_F,
    printed beside it; in float32 it exceeds σ_max itself); wall
    ms (8n³/3 flops; no library call computes it); traced shares.
+9d. the tile-DAG backend (``variant="tiled"``, one task at a time on one
+   stream): ``cholesky_factor`` at n = 8192, tiles of 256 and 512, against
+   ``rtm``'s factor at the same block (bitwise, or the deviation recorded
+   and bounded by 200·n·eps), the ``posv`` residual; ``qr_factor`` at
+   16384 x 4096, tiles of 256: ‖QR − A‖ and ‖QᵀQ − I‖ through
+   ``qr_form_q`` (units of m·eps), the least-squares ratio through
+   ``TiledQRFactors``, R exactly triangular; one 512 x 256 tile bitwise
+   ``mtb``'s R; two runs bitwise equal; per path the median of
+   ``NEW_REPS`` calls beside ``mtb``'s, ``report.tile_dag`` of one traced
+   run (tasks, waves, widest wave, ideal speedup, seconds by kind) and
+   its launches by kernel (float64 and float32).
+9e. the tuner in a temporary cache: ``tune.search`` for LU and Cholesky at
+   n = 8192 over blocks ``TUNE_BLOCKS`` and for QR over the default
+   blocks with ``tiled`` among the variants (its best-ranked candidates
+   and their modeled ms printed), float64: each measured candidate with
+   its model prediction and attainment row, the winner at or below the
+   measured ``b = 128`` ``la`` baseline, a second search from the cache
+   that launches no kernel, and ``gesv``/``posv`` with
+   ``variant="tuned"`` bitwise a direct call of the winner.
+9f. the trace export: one traced float64 ``gesv`` ``la`` at n = 8192
+   written by ``export.write_chrome_trace`` to a temporary file and read
+   back as JSON with its lanes; its ``report.overlap`` and
+   ``export.render_timeline``.
 10. ``flash_attention`` against its plain version, bfloat16 and float32,
     at the serving shape (B 4, 40 query heads over 10 KV heads, S 1024,
     D 128, causal) and at one 32k sequence (prefill_32k's), on the
@@ -188,6 +211,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -247,14 +271,11 @@ ROUNDING_RATIO = 2.0
 STEPWISE_S = 256                 # token-by-token decode over two chunks of 128
 #: kernels checked on the serving paths, not on the factorization paths
 SERVING_KERNELS = ("flash_attention", "wkv6_fused")
-#: Peaks of one H100 SXM: 67 TFLOP/s for float32 outside the tensor cores
-#: and for float64 through them (NVIDIA data sheet); 3.35 TB/s of HBM3.
-PEAK_FLOPS = 67e12
-#: bfloat16 dense through the tensor cores (NVIDIA data sheet)
-BF16_FLOPS = 989e12
-HBM_BYTES_PER_S = 3.35e12
-L2_BYTES = 50e6                  # the H100's L2 cache (NVIDIA data sheet)
 RESIDUAL_LIMIT = 100.0
+TILE_BLOCKS = (256, 512)         # 9d: tiled Cholesky's tiles at n = N
+TILE_QR_BLOCK = 256              # 9d: tiled QR's tiles at QR_M x QR_N
+SINGLE_TILE = (512, 256)         # 9d: one tile covering the matrix
+TUNE_BLOCKS = (96, 128, 192, 256, 384)   # 9e: the LU and Cholesky sweeps
 
 
 def _as_tuple(x):
@@ -285,6 +306,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.tune.model import MACHINE
+
+    # the card's peaks, one record for the port (NVIDIA data sheet, H100
+    # SXM at 700 W): float64 through the tensor cores and float32 outside
+    # them at the same rate, bfloat16 through the tensor cores, HBM3, L2
+    PEAK_FLOPS = MACHINE.peak(torch.float64)
+    BF16_FLOPS = MACHINE.peak(torch.bfloat16)
+    HBM_BYTES_PER_S = MACHINE.hbm_bytes_per_s
+    L2_BYTES = MACHINE.l2_bytes
     from repro_torch.core.backend import no_tf32
     from repro_torch.core.cholesky import cholesky_blocked, cholesky_unblocked
     from repro_torch.core.cholesky import cholesky_panel as op_cholesky_panel
@@ -301,10 +331,12 @@ def main() -> int:
     from repro_torch.kernels import fused_panel_update as fpu
     from repro_torch.kernels import wkv6 as wkv
     from repro_torch.models import api, rwkv6
-    from repro_torch.obs import tracer
+    from repro_torch import tune
+    from repro_torch.core import tiles
+    from repro_torch.obs import export, report, tracer
     from repro_torch.serve.engine import ServeConfig, ServeEngine
     from repro_torch.solve import (cholesky_factor, gecon, gehrd, geqp3,
-                                   gesv, getri, ldlt_factor, lu_factor,
+                                   gesv, getri, ldlt_factor, lu_factor, posv,
                                    qr_factor)
 
     dev = torch.device("cuda")
@@ -1974,6 +2006,267 @@ def main() -> int:
     for name in ("qr_panel", "gemm_accum"):
         check(new_paths["band_reduction"].get(name, 0) > 0, f"kernel {name} "
               "was not launched on the band_reduction path")
+    # ---- 9d. the tile-DAG backend: tiled Cholesky and QR -----------------
+    # one task at a time on one stream, as the reference's executor runs
+    # them: each task's kernels are the ported ones (the Cholesky panel, the
+    # right TRSM and the GEMM; the QR panel and the GEMM)
+    def tile_record(run):
+        """tile_dag of one traced run, and its launches by kernel."""
+        bank(new_paths["tiled"])
+        with tracer.trace() as tr:
+            run()
+        launched = {k: v for k, v in ops.launches().items() if v}
+        bank(new_paths["tiled"])
+        rep = report.tile_dag(tr.spans)
+        return {"tasks": rep["n_tasks"], "waves": rep["n_waves"],
+                "widest_wave": rep["max_wave_width"],
+                "ideal_speedup": rep["ideal_speedup"],
+                "serialized_s": rep["serialized_s"],
+                "critical_path_s": rep["critical_path_s"],
+                "seconds_by_kind": rep["kind_s"],
+                "traced_launches": launched}
+
+    def timed_calls(call, bits=_as_tuple, reps=NEW_REPS):
+        """``reps`` synchronised calls: (first result, ms of each, the
+        tensors ``bits`` picks of every result bitwise the first's)."""
+        first, ms, same_bits = None, [], True
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            out = call()
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if first is None:
+                first = out
+            else:
+                same_bits &= all(torch.equal(x, y) for x, y in
+                                 zip(bits(first), bits(out)))
+        return first, ms, same_bits
+
+    new_paths["tiled"] = {}
+    ops.reset_launches()
+    for dtype in (torch.float64, torch.float32):
+        eps = torch.finfo(dtype).eps
+        gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+        g = torch.randn(N, N, generator=gen, device=dev, dtype=dtype)
+        a = torch.matmul(g, g.mT) / N
+        a.diagonal().add_(1.0)
+        del g
+        b = torch.randn(N, NRHS, generator=gen, device=dev, dtype=dtype)
+        for blk in TILE_BLOCKS:
+            l_tiled, tiled_ms, det = timed_calls(
+                lambda: cholesky_factor(a, blk, variant="tiled").l)
+            check(det, f"tiled cholesky {dtype} b {blk}: two runs differ")
+            l_mtb, mtb_ms, _ = timed_calls(
+                lambda: cholesky_factor(a, blk, variant="mtb").l)
+            l_rtm = cholesky_factor(a, blk, variant="rtm").l
+            bitwise = torch.equal(l_tiled, l_rtm)
+            dev_rtm = float((l_tiled.double() - l_rtm.double()).abs().max())
+            rel_rtm = compare(l_tiled, l_rtm)[0]
+            check(bitwise or rel_rtm < 200.0 * N * eps, f"tiled cholesky "
+                  f"{dtype} b {blk}: {rel_rtm} from rtm's factor")
+            x = cholesky_factor(a, blk, variant="tiled").solve(b)
+            res = scaled_residual(a, x, b, dtype)
+            check(res < RESIDUAL_LIMIT, f"tiled posv {dtype} b {blk}: "
+                  f"residual {res}")
+            emit({"phase": "tiled_cholesky", "dtype": str(dtype), "n": N,
+                  "block": blk, "tiled_ms": statistics.median(tiled_ms),
+                  "tiled_ms_calls": tiled_ms,
+                  "mtb_ms": statistics.median(mtb_ms),
+                  "mtb_ms_calls": mtb_ms, "bitwise_equal_to_rtm": bitwise,
+                  "bitwise_equal_to_mtb": torch.equal(l_tiled, l_mtb),
+                  "max_abs_dev_from_rtm": dev_rtm,
+                  "rel_dev_from_rtm": rel_rtm, "deterministic": det,
+                  "posv_scaled_residual": res,
+                  **tile_record(lambda: cholesky_factor(a, blk,
+                                                        variant="tiled"))})
+            del l_tiled, l_mtb, l_rtm, x
+        del a, b
+
+        # tiled QR on the gels shape: ‖QR − A‖, QᵀQ through qr_form_q,
+        # the least-squares ratio through TiledQRFactors
+        gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+        a = torch.randn(QR_M, QR_N, generator=gen, device=dev, dtype=dtype)
+        b = torch.randn(QR_M, NRHS, generator=gen, device=dev, dtype=dtype)
+        fac, tiled_ms, det = timed_calls(
+            lambda: qr_factor(a, TILE_QR_BLOCK, variant="tiled"),
+            bits=lambda f: (f.tqr.r,))
+        check(det, f"tiled qr {dtype}: two runs differ")
+        twice = qr_factor(a, TILE_QR_BLOCK, variant="tiled")
+        det &= all(torch.equal(f1.v, f2.v) and torch.equal(f1.t, f2.t)
+                   for f1, f2 in zip(fac.tqr.factors, twice.tqr.factors))
+        check(det, f"tiled qr {dtype}: the reflectors of two runs differ")
+        del twice
+        _, mtb_ms, _ = timed_calls(
+            lambda: qr_factor(a, TILE_QR_BLOCK, variant="mtb").packed)
+        x = fac.solve(b)
+        ratio = ls_ratio(a, x, b, dtype)
+        check(ratio < RESIDUAL_LIMIT, f"tiled gels {dtype}: least-squares "
+              f"ratio {ratio}")
+        r = fac.tqr.r
+        check(not bool(torch.tril(r[:QR_N], -1).any()), f"tiled qr {dtype}: "
+              "R is not upper triangular")
+        q = tiles.qr_form_q(fac.tqr)
+        recon = float((q.double() @ r.double() - a.double()).norm()) / (
+            float(a.double().norm()) * QR_M * eps)
+        orth = float((q.double().mT @ q.double() - torch.eye(
+            QR_M, dtype=torch.float64, device=dev)).norm()) / (QR_M * eps)
+        del q
+        check(recon < RESIDUAL_LIMIT and orth < RESIDUAL_LIMIT,
+              f"tiled qr {dtype}: ‖QR − A‖ {recon}, ‖QᵀQ − I‖ {orth} "
+              "(units of m·eps)")
+        emit({"phase": "tiled_qr", "dtype": str(dtype), "m": QR_M, "n": QR_N,
+              "block": TILE_QR_BLOCK, "tiled_ms": statistics.median(tiled_ms),
+              "tiled_ms_calls": tiled_ms, "mtb_ms": statistics.median(mtb_ms),
+              "mtb_ms_calls": mtb_ms, "reflectors": len(fac.tqr.factors),
+              "reconstruction": recon, "orthogonality": orth,
+              "ls_ratio": ratio, "deterministic": det,
+              **tile_record(lambda: qr_factor(a, TILE_QR_BLOCK,
+                                              variant="tiled"))})
+        del fac, x, r, a, b
+        # one tile covering the matrix is GEQRF: bitwise mtb's packed R
+        sm, sn = SINGLE_TILE
+        a = torch.randn(sm, sn, generator=gen, device=dev, dtype=dtype)
+        one = qr_factor(a, sm, variant="tiled")
+        check(len(one.tqr.factors) == 1 and torch.equal(
+            one.tqr.r, torch.triu(qr_factor(a, sm, variant="mtb").packed)),
+            f"tiled qr {dtype}: one {sm} x {sn} tile is not mtb's R")
+        emit({"phase": "tiled_qr_single_tile", "dtype": str(dtype),
+              "shape": [sm, sn], "bitwise_equal_to_mtb_r": True})
+        del a, one
+    bank(new_paths["tiled"])
+    for name in ("cholesky_panel", "trsm_right_lower_t", "gemm_accum",
+                 "qr_panel"):
+        check(new_paths["tiled"].get(name, 0) > 0, f"kernel {name} was not "
+              "launched on the tiled path")
+
+    # ---- 9e. the tuner: search in a temporary cache, "tuned" dispatch ----
+    def run_search(dmf, **kw):
+        sink = []
+        t0 = time.perf_counter()
+        cfg = tune.search(dmf, N, torch.float64, trace_sink=sink, **kw)
+        search_s = time.perf_counter() - t0
+        check(not cfg.from_cache, f"tune {dmf}: the first search was cached")
+        check(cfg.seconds <= cfg.baseline_seconds, f"tune {dmf}: winner "
+              f"{cfg.seconds} s slower than the baseline "
+              f"{cfg.baseline_seconds} s")
+        rows = [report.attainment_row(dmf, N, t.candidate.variant,
+                                      t.candidate.schedule, t.spans,
+                                      dtype="float64") for t in sink]
+        measured = [{"candidate": t.candidate.label(),
+                     "measured_ms": t.measured_s * 1e3,
+                     "predicted_ms": (None if t.predicted_s is None
+                                      else t.predicted_s * 1e3),
+                     "traced_ms": row["measured_s"] * 1e3,
+                     "traced_tile_ms": report.tile_dag(t.spans)[
+                         "serialized_s"] * 1e3,
+                     "attainment": row["attainment"],
+                     "overlap_efficiency": t.overlap["overlap_efficiency"]}
+                    for t, row in zip(sink, rows)]
+        return cfg, search_s, measured, report.format_attainment(rows)
+
+    new_paths["tune"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = tune.TuneCache(Path(tmp) / "tune.json")
+        previous = tune.set_default_cache(cache)
+        winners = {}
+        for dmf, kw in (("lu", {"blocks": TUNE_BLOCKS}),
+                        ("cholesky", {"blocks": TUNE_BLOCKS}), ("qr", {})):
+            bank(new_paths["tune"])
+            cfg, search_s, measured, table = run_search(dmf, **kw)
+            # the ranked candidates of the tile-DAG variant
+            cands = tune.sweep._candidates(dmf, N, torch.float64,
+                                           kw.get("blocks",
+                                                  tune.DEFAULT_BLOCKS),
+                                           None, ("cuda",))
+            ranked = tune.model.rank(dmf, N, torch.float64, cands)
+            tiled_ranks = [{"candidate": c.label(), "rank": i,
+                            "predicted_ms": tune.model.predict(
+                                dmf, N, torch.float64, c.variant,
+                                c.schedule) * 1e3}
+                           for i, c in enumerate(ranked)
+                           if c.variant == "tiled"][:4]
+            bank(new_paths["tune"])
+            again = tune.search(dmf, N, torch.float64, **kw)
+            cached_launches = sum(ops.launches().values())
+            check(again.from_cache and cached_launches == 0, f"tune {dmf}: "
+                  f"the second search (from_cache {again.from_cache}) "
+                  f"launched {cached_launches} kernels")
+            winners[dmf] = cfg
+            emit({"phase": "tune", "dmf": dmf, "n": N, "dtype": "float64",
+                  "candidates": len(cands), "search_s": search_s,
+                  "winner": {"variant": cfg.variant,
+                             "block": cfg.schedule[0],
+                             "schedule_uniform": tune.is_uniform(
+                                 cfg.schedule),
+                             "seconds": cfg.seconds, "key": tune.cache_key(
+                                 dmf, N, torch.float64, cfg.backend)},
+                  "baseline_seconds": cfg.baseline_seconds,
+                  "speedup_over_baseline": cfg.baseline_seconds
+                  / cfg.seconds, "measured": measured,
+                  "attainment_table": table.splitlines(),
+                  "tiled_ranked": tiled_ranks,
+                  "second_search_from_cache": True,
+                  "second_search_launches": cached_launches})
+
+        # "tuned" through the drivers: bitwise a direct call of the winner
+        gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+        a = torch.randn(N, N, generator=gen, device=dev,
+                        dtype=torch.float64)
+        b = torch.randn(N, NRHS, generator=gen, device=dev,
+                        dtype=torch.float64)
+        spd = torch.matmul(a, a.mT) / N
+        spd.diagonal().add_(1.0)
+        # (the factor is the winner's; the solve keeps the caller's block)
+        for name, drv, fac_fn, mat, cfg, fields in (
+                ("gesv", gesv, lu_factor, a, winners["lu"], ("lu", "ipiv")),
+                ("posv", posv, cholesky_factor, spd, winners["cholesky"],
+                 ("l",))):
+            got = fac_fn(mat, variant="tuned")
+            want = fac_fn(mat, cfg.schedule, variant=cfg.variant)
+            check(same(got, want, fields), f"{name} tuned: the factor is not "
+                  f"bitwise the winner's, {cfg.variant} / b {cfg.schedule[0]}")
+            x = drv(mat, b, variant="tuned")
+            check(torch.equal(x, got.solve(b)), f"{name} tuned: the solve "
+                  "differs from the tuned factor's")
+            res = scaled_residual(mat, x, b, torch.float64)
+            check(res < RESIDUAL_LIMIT, f"{name} tuned: residual {res}")
+            emit({"phase": "tuned_dispatch", "driver": name, "n": N,
+                  "dtype": "float64", "variant": cfg.variant,
+                  "block": cfg.schedule[0], "bitwise_equal_to_winner": True,
+                  "scaled_residual": res})
+        del a, b, spd, x, got, want
+        tune.set_default_cache(previous)
+    bank(new_paths["tune"])
+    check(new_paths["tune"].get("gemm_accum", 0) > 0,
+          "kernel gemm_accum was not launched on the tune path")
+
+    # ---- 9f. the trace export: a Chrome trace of one traced gesv ---------
+    new_paths["obs_export"] = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    a = torch.randn(N, N, generator=gen, device=dev, dtype=torch.float64)
+    b = torch.randn(N, NRHS, generator=gen, device=dev, dtype=torch.float64)
+    with tracer.trace() as tr:
+        gesv(a, b, BLOCK, variant="la")
+    bank(new_paths["obs_export"])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = export.write_chrome_trace(str(Path(tmp) / "gesv_la.json"),
+                                         tr.spans, label="gesv la")
+        with open(path) as f:
+            loaded = json.load(f)
+    events = loaded["traceEvents"]
+    lanes = sorted({e["args"]["name"] for e in events
+                    if e["name"] == "thread_name"})
+    spans_x = sum(1 for e in events if e["ph"] == "X")
+    check(spans_x == len(tr.spans) and {"panel (PF)", "update (TU)",
+                                        "drivers"} <= set(lanes),
+          f"chrome trace: {spans_x} events of {len(tr.spans)} spans, lanes "
+          f"{lanes}")
+    emit({"phase": "obs_export", "path": "gesv", "variant": "la", "n": N,
+          "dtype": "float64", "events": len(events), "lanes": lanes,
+          "overlap": report.overlap(tr.spans),
+          "timeline": export.render_timeline(tr.spans).splitlines()})
+    del a, b
     emit({"phase": "new_paths_launches", **new_paths})
     counts = {k: counts[k] + sum(p.get(k, 0) for p in new_paths.values())
               for k in counts}

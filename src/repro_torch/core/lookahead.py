@@ -16,10 +16,16 @@ driver.  Band reduction keeps its own two-panel loop and stays depth-1:
 ``"la2"`` and deeper raise ``KeyError`` for it.  Global QRCP and
 Hessenberg have no look-ahead variant by policy
 (:data:`LOOKAHEAD_EXCLUDED`):
-``"la"``/``"la<d>"``/``"la_mb"`` raise ``KeyError`` with the reason.  The
-reference's ``tuned`` (autotuner cache) and ``tiled`` (tile-DAG) variants
-are not ported yet and raise ``KeyError`` naming the ROADMAP item that
-brings them.
+``"la"``/``"la<d>"``/``"la_mb"`` raise ``KeyError`` with the reason, and
+so does ``"tiled"``: a panel that reads the whole trailing block has no
+tile decomposition either.
+
+``"tiled"`` (Cholesky and QR) is the tile-DAG backend
+(:mod:`repro_torch.core.tiles`).  ``"tuned"`` (every DMF of
+:data:`TUNABLE`) runs the (variant, schedule) that
+:func:`repro_torch.tune.search` cached for the input's shape and dtype,
+the caller's backend and the device it runs on; with a cold cache it runs
+``la`` (``mtb`` where there is none) at the caller's block.
 """
 from __future__ import annotations
 
@@ -27,9 +33,10 @@ import re
 from typing import Callable, Dict, Tuple
 
 from repro_torch.core import (band_reduction, cholesky, gauss_jordan,
-                              hessenberg, ldlt, lu, qr, qrcp)
+                              hessenberg, ldlt, lu, qr, qrcp, tiles)
 from repro_torch.core.backend import resolve_backend
 from repro_torch.core.pipeline import supports_depth
+from repro_torch.device import resolve_device
 
 _REGISTRY: Dict[str, Dict[str, Callable]] = {
     "lu": {
@@ -40,11 +47,13 @@ _REGISTRY: Dict[str, Dict[str, Callable]] = {
     "cholesky": {
         "mtb": cholesky.cholesky_blocked,
         "rtm": cholesky.cholesky_tiled,
+        "tiled": tiles.cholesky_tiles,
         "la": cholesky.cholesky_lookahead,
     },
     "qr": {
         "mtb": qr.qr_blocked,
         "rtm": qr.qr_tiled,
+        "tiled": tiles.qr_tiles,
         "la": qr.qr_lookahead,
     },
     "ldlt": {
@@ -83,14 +92,18 @@ LOOKAHEAD_EXCLUDED: Dict[str, str] = {
     "hessenberg": hessenberg.HESSENBERG_OPS.la_unsafe,
 }
 
-#: Reference variants that this port does not resolve yet, and why.
-NOT_PORTED = {
-    "tuned": "the autotuner arrives with ROADMAP Queue 1 item 13",
-    "tiled": "the tile-DAG backend arrives with ROADMAP Queue 1 item 15",
-}
-
-VARIANTS = ("mtb", "rtm", "la")
+VARIANTS = ("mtb", "rtm", "tiled", "la", "la_mb")
 FACTORIZATIONS = tuple(_REGISTRY)
+
+#: Variants resolved by composition rather than a registry row: ``la_mb``
+#: (``la`` with the fused panel update), the depth-suffixed names and
+#: ``tuned``.
+DERIVED_VARIANTS = ("la_mb", "tuned")
+
+#: ``tuned`` replaces the caller's block schedule with the cached one, which
+#: is right only where the block is a pure performance knob.  Band
+#: reduction's ``w`` is the output bandwidth, so it is not tunable.
+TUNABLE = tuple(d for d in _REGISTRY if d != "band_reduction")
 
 _DEPTH_RE = re.compile(r"^(la(?:_mb)?)([1-9]\d*)$")
 
@@ -133,6 +146,8 @@ def list_variants(dmf: str) -> tuple[str, ...]:
         if supports_depth(_REGISTRY[dmf]["la"]):
             out.insert(out.index("la") + 1, "la2")
         out.append("la_mb")
+    if dmf in TUNABLE:
+        out.append("tuned")
     return tuple(out)
 
 
@@ -181,6 +196,37 @@ def _make_la_mb(dmf: str, la: Callable) -> Callable:
     return la_mb
 
 
+def _make_tuned(dmf: str, table: Dict[str, Callable]) -> Callable:
+    def tuned(a, b=None, **kw):
+        """Dispatch through the :mod:`repro_torch.tune` cache.
+
+        A hit runs the cached (variant, depth, schedule) on the caller's
+        backend and device; a cold cache runs ``la`` (``mtb`` where there
+        is none) at the caller's block (or 128), so ``"tuned"`` always
+        runs.  The key names the backend and the device type, so a winner
+        measured on the CPU never serves a call on the GPU.
+        """
+        from repro_torch import tune
+
+        cfg = tune.tuned(dmf, tuple(a.shape), dtype=a.dtype,
+                         backend=resolve_backend(kw.get("backend", "cuda"))
+                         .name, device=resolve_device(kw.get("device")))
+        if cfg is None:
+            fallback = table.get("la", table["mtb"])
+            return fallback(a, b if b is not None else 128, **kw)
+        if cfg.kernel_blocks is not None:
+            raise ValueError(
+                f"tuned {dmf!r} entry carries kernel_blocks="
+                f"{cfg.kernel_blocks}: the port's GEMM has no kernel-blocking "
+                f"axis (it picks its tile from compiled instances), so the "
+                f"winner cannot be reproduced; re-run repro_torch.tune.search")
+        # the block is positional: band reduction names it w, not b
+        return get_variant(dmf, cfg.variant)(a, cfg.schedule, **kw)
+
+    tuned.__name__ = f"{dmf}_tuned"
+    return tuned
+
+
 def get_variant(dmf: str, variant: str) -> Callable:
     """Resolve (factorization, scheduling variant) to a driver
     ``fn(a, b=128, *, backend="cuda", device=None, ...)``."""
@@ -193,11 +239,15 @@ def get_variant(dmf: str, variant: str) -> Callable:
             f"variant {variant!r} not available for {dmf!r}: look-ahead "
             f"(and tile-DAG) scheduling is excluded by policy — "
             f"{LOOKAHEAD_EXCLUDED[dmf]}; have {list_variants(dmf)}")
-    if base in NOT_PORTED:
-        raise KeyError(f"variant {variant!r} is not ported yet: "
-                       f"{NOT_PORTED[base]}; have {list_variants(dmf)}")
     if base == "la_mb" and "la" in table:
         return _make_la_mb(dmf, _with_depth(dmf, table["la"], depth))
+    if base == "tuned":
+        if dmf not in TUNABLE:
+            raise KeyError(
+                f"variant 'tuned' not available for {dmf!r}: its block size "
+                f"defines the output, not just the schedule; "
+                f"have {list_variants(dmf)}")
+        return _make_tuned(dmf, table)
     if base not in table:
         raise KeyError(f"variant {variant!r} not available for {dmf!r}; "
                        f"have {list_variants(dmf)}")

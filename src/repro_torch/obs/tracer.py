@@ -9,8 +9,11 @@ index, owning iteration and in-flight depth.  Categories
 (:data:`CATEGORIES`): ``PF`` (panel factorization), ``TU`` (bulk trailing
 update), ``PU`` (narrow update of a panel in flight), ``SWAP`` (row
 interchanges), ``EPI`` (the per-iteration epilogue of a two-sided DMF:
-Gauss–Jordan's update of the columns left of the panel and its commit)
-and ``drive`` (a whole driver call).
+Gauss–Jordan's update of the columns left of the panel and its commit),
+``TILE`` (one task of the tile-DAG executor,
+:func:`repro_torch.core.tiles.run_dag`), ``drive`` (a whole driver call)
+and ``sweep`` (the tuner's lane; no layer emits it yet, as in the
+reference).
 
 * **Disabled is free and bitwise-invisible.**  No tracer installed ⇒ every
   instrumented site runs its original call behind a single
@@ -31,7 +34,7 @@ from typing import Any, Callable, Dict, List, Optional
 __all__ = ["Span", "Tracer", "trace", "active", "CATEGORIES"]
 
 #: The span categories the engine and the drivers emit.
-CATEGORIES = ("PF", "TU", "PU", "SWAP", "EPI", "drive")
+CATEGORIES = ("PF", "TU", "PU", "SWAP", "EPI", "TILE", "drive", "sweep")
 
 #: The currently installed tracer (None = tracing disabled, the default).
 _ACTIVE: Optional["Tracer"] = None

@@ -6,9 +6,9 @@ from repro_torch.solve.drivers import (cholesky_factor, gecon, gehrd, geqp3,
                                        lu_factor, posv, qr_factor)
 from repro_torch.solve.factors import (CholeskyFactors, HessenbergFactors,
                                        LDLTFactors, LUFactors, QRCPFactors,
-                                       QRFactors)
+                                       QRFactors, TiledQRFactors)
 
 __all__ = ["gesv", "lu_factor", "posv", "cholesky_factor", "ldlt_factor",
            "gels", "qr_factor", "geqp3", "gehrd", "getri", "gecon",
            "LUFactors", "CholeskyFactors", "LDLTFactors", "QRFactors",
-           "QRCPFactors", "HessenbergFactors"]
+           "QRCPFactors", "HessenbergFactors", "TiledQRFactors"]

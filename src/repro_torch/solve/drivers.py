@@ -3,8 +3,10 @@
 ``gels``, ``gehrd``, ``getri`` and ``gecon``.
 
 The port of :mod:`repro.solve.drivers`.  All take
-``variant=`` (``mtb``/``rtm``/``la``/``la<d>``/``la_mb``, resolved by
-:func:`repro_torch.core.lookahead.get_variant`), ``depth=``, ``backend=``
+``variant=`` (``mtb``/``rtm``/``la``/``la<d>``/``la_mb``, the tile-DAG
+``tiled`` for Cholesky and QR, and ``tuned``, the autotuner's cached
+winner; resolved by :func:`repro_torch.core.lookahead.get_variant`),
+``depth=``, ``backend=``
 (``"cuda"`` — the hand-written kernels, the default — or ``"torch"`` — the
 library ops, or a :class:`~repro_torch.core.backend.Backend`) and
 ``device=`` (``None`` means the GPU; raises ``RuntimeError`` without one).
@@ -21,9 +23,10 @@ from repro_torch.core.backend import resolve_backend
 from repro_torch.core.blocking import BlockSpec, normalize_block
 from repro_torch.core.lookahead import deepen, get_variant
 from repro_torch.obs import tracer as _obs
+from repro_torch.core.tiles import TileQR
 from repro_torch.solve.factors import (CholeskyFactors, HessenbergFactors,
                                        LDLTFactors, LUFactors, QRCPFactors,
-                                       QRFactors)
+                                       QRFactors, TiledQRFactors)
 
 __all__ = ["lu_factor", "gesv", "cholesky_factor", "posv", "ldlt_factor",
            "qr_factor", "geqp3", "gels", "gehrd", "getri", "gecon"]
@@ -75,9 +78,11 @@ def gesv(a, b, block: BlockSpec = 128, *, variant: str = "la",
 
 @_traced
 def cholesky_factor(a, block: BlockSpec = 128, *, variant: str = "la",
-                    depth: int = 1, backend="cuda",
-                    device=None) -> CholeskyFactors:
+                    depth: int = 1, backend="cuda", device=None,
+                    mesh=None) -> CholeskyFactors:
     """Factor ``A = L·Lᵀ`` for symmetric positive-definite A (Cholesky)."""
+    if mesh is not None:
+        raise NotImplementedError(_NO_MESH)
     be = resolve_backend(backend)
     l = get_variant("cholesky", _deepen(variant, depth))(
         a, block, backend=be, device=device)
@@ -86,10 +91,11 @@ def cholesky_factor(a, block: BlockSpec = 128, *, variant: str = "la",
 
 @_traced
 def posv(a, b, block: BlockSpec = 128, *, variant: str = "la",
-         depth: int = 1, backend="cuda", device=None):
+         depth: int = 1, backend="cuda", device=None, mesh=None):
     """Solve ``A·X = B`` for symmetric positive-definite A (Cholesky)."""
     return cholesky_factor(a, block, variant=variant, depth=depth,
-                           backend=backend, device=device).solve(b)
+                           backend=backend, device=device,
+                           mesh=mesh).solve(b)
 
 
 @_traced
@@ -107,14 +113,19 @@ def ldlt_factor(a, block: BlockSpec = 128, *, variant: str = "la",
 @_traced
 def qr_factor(a, block: BlockSpec = 128, *, variant: str = "la",
               depth: int = 1, backend="cuda", device=None,
-              mesh=None) -> QRFactors:
+              mesh=None) -> QRFactors | TiledQRFactors:
     """Householder QR (GEQRF); any m, n (wide inputs stop once the rows
-    are exhausted)."""
+    are exhausted).  ``variant="tiled"``, or a ``"tuned"`` winner that is
+    ``tiled``, returns :class:`TiledQRFactors`."""
     if mesh is not None:
         raise NotImplementedError(_NO_MESH)
     be = resolve_backend(backend)
-    packed, taus = get_variant("qr", _deepen(variant, depth))(
-        a, block, backend=be, device=device)
+    out = get_variant("qr", _deepen(variant, depth))(a, block, backend=be,
+                                                     device=device)
+    if isinstance(out, TileQR):
+        return TiledQRFactors(tqr=out, block=normalize_block(block),
+                              backend=be)
+    packed, taus = out
     return QRFactors(packed=packed, taus=taus, block=normalize_block(block),
                      backend=be)
 

@@ -4,11 +4,13 @@ The port of :class:`repro.solve.factors.LUFactors`,
 :class:`~repro.solve.factors.CholeskyFactors`,
 :class:`~repro.solve.factors.LDLTFactors`,
 :class:`~repro.solve.factors.QRFactors`,
-:class:`~repro.solve.factors.QRCPFactors` and
-:class:`~repro.solve.factors.HessenbergFactors`: the packed GETRF / POTRF /
-unpivoted LDLᵀ / GEQRF / GEQP3 / GEHRD output with the block size and backend it was built
-with, and the operations LAPACK derives from it (``solve``, transposed
-``solve``, ``logdet``, ``inverse``; for GEHRD ``h``, ``q``,
+:class:`~repro.solve.factors.QRCPFactors`,
+:class:`~repro.solve.factors.HessenbergFactors` and
+:class:`~repro.solve.factors.TiledQRFactors`: the packed GETRF / POTRF /
+unpivoted LDLᵀ / GEQRF / GEQP3 / GEHRD output (and the tile-DAG QR's
+:class:`~repro_torch.core.tiles.TileQR`) with the block size and backend
+it was built with, and the operations LAPACK derives from it (``solve``,
+transposed ``solve``, ``logdet``, ``inverse``; for GEHRD ``h``, ``q``,
 ``reconstruct``, ``similarity``, ``eigvals``).
 
 Carrying a factored system across the two packages: this system has no
@@ -37,11 +39,12 @@ from repro_torch.core.hessenberg import form_q_hess, unpack_hessenberg
 from repro_torch.core.lu import permutation_from_pivots
 from repro_torch.core.qr import Panel, _pad_tau, apply_qt_blocked, \
     build_t_matrix, unpack_v
+from repro_torch.core.tiles import TileQR, qr_apply_qt
 from repro_torch.device import resolve_device, working_copy
 from repro_torch.solve.triangular import lu_solve_packed, trsm_blocked
 
 __all__ = ["LUFactors", "CholeskyFactors", "LDLTFactors", "QRFactors",
-           "QRCPFactors", "HessenbergFactors"]
+           "QRCPFactors", "HessenbergFactors", "TiledQRFactors"]
 
 
 def _rhs(b, like: torch.Tensor, n: int) -> tuple[torch.Tensor, bool]:
@@ -309,6 +312,55 @@ class QRFactors:
             raise ValueError("inverse requires a square matrix")
         return self.solve(torch.eye(self.n, dtype=self.packed.dtype,
                                     device=self.packed.device))
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledQRFactors:
+    """Tile-DAG QR output (``variant="tiled"``): the explicit R and the
+    GEQRT/TSQRT reflector chain of a :class:`~repro_torch.core.tiles.TileQR`.
+
+    The TSQRT chain couples tile rows pairwise, so its reflectors have no
+    GEQRF packed form: ``Qᵀ·C`` goes through
+    :func:`~repro_torch.core.tiles.qr_apply_qt`, and the triangular solve
+    after it is :class:`QRFactors`'s.
+    """
+
+    tqr: TileQR
+    backend: Backend
+    block: BlockSpec = 128
+
+    @property
+    def m(self) -> int:
+        return self.tqr.r.shape[0]
+
+    @property
+    def n(self) -> int:
+        return self.tqr.r.shape[1]
+
+    def apply_qt(self, c) -> torch.Tensor:
+        """``Qᵀ·C`` through the tile reflectors; returns a new tensor."""
+        return qr_apply_qt(self.tqr, c, backend=self.backend)
+
+    def solve(self, b) -> torch.Tensor:
+        """Least-squares solution ``argmin‖A·X − B‖₂`` (m ≥ n)."""
+        if self.m < self.n:
+            raise ValueError("TiledQRFactors.solve requires m >= n "
+                             "(underdetermined systems need LQ)")
+        b, was_vec = _rhs(b, self.tqr.r, self.m)
+        qtb = self.apply_qt(b)
+        x = trsm_blocked(self.tqr.r[: self.n], qtb[: self.n], lower=False,
+                         block=self.block, backend=self.backend)
+        return x[:, 0] if was_vec else x
+
+    def logdet(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(0, log|det A|)`` of a square A: the reflectors with nonzero
+        tau are spread over the GEQRT and TSQRT contexts, so det Q's sign
+        is not kept, and the sign reads 0 (unknown), as in the reference."""
+        if self.m != self.n:
+            raise ValueError("logdet requires a square matrix")
+        d = torch.diagonal(self.tqr.r)
+        return torch.zeros((), dtype=d.dtype, device=d.device), \
+            torch.sum(torch.log(torch.abs(d)))
 
 
 @dataclasses.dataclass(frozen=True)

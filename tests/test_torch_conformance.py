@@ -6,7 +6,9 @@ shape classes, its inputs, its per-DMF contract checks (``CHECKS``,
 200·max(m,n,8)·eps at the effective compute dtype.  This sweep runs those
 checks on the port: every DMF of ``repro_torch.core.lookahead``, every
 variant ``list_variants`` names (``la_mb`` only where it is a fused kernel
-of its own, LU and Cholesky: elsewhere it is the ``la`` driver), both
+of its own, LU and Cholesky: elsewhere it is the ``la`` driver; not
+``tuned``, which reads machine-local cache state; ``tiled`` QR through
+the reference's ``_check_qr_tiled`` on its ``TileQR``), both
 backends (``"torch"``, and ``"cuda"``, whose kernels run their plain
 versions on the CPU), float32 and float64, and the DMF's shape classes.
 The port computes at the input dtype on every path, so the tolerance is
@@ -28,6 +30,8 @@ import numpy as np
 import pytest
 
 import conformance
+from repro.core import tiles as ref_tiles
+from repro_torch.core import tiles
 from repro_torch.core.lookahead import FACTORIZATIONS, get_variant, \
     list_variants, parse_variant
 
@@ -39,6 +43,9 @@ BACKENDS = ("torch", "cuda")
 #: the DMFs this slice added, swept over every shape class
 NEW_DMFS = ("ldlt", "gauss_jordan", "band_reduction")
 
+#: variants swept after the others ("tiled"), or not at all ("tuned")
+TAIL = ("tiled", "tuned")
+
 
 def _cases():
     cases = []
@@ -47,7 +54,12 @@ def _cases():
         # gives them to its jnp mtb
         classes = conformance.shape_classes_for(dmf, "mtb", "jnp")
         turn = 0
-        for variant in list_variants(dmf):
+        # "tuned" reads machine-local cache state, as the reference's sweep
+        # says; "tiled" (Cholesky, QR) comes last, so that the other
+        # variants keep their shape classes
+        variants = [v for v in list_variants(dmf) if v not in TAIL]
+        variants += [v for v in TAIL[:1] if v in list_variants(dmf)]
+        for variant in variants:
             if parse_variant(variant)[0] == "la_mb" \
                     and dmf not in conformance.FUSED_LA_MB:
                 continue
@@ -99,7 +111,16 @@ def test_port_meets_the_reference_contract(case):
                                dtype=case.dtype)
     out = get_variant(case.dmf, case.variant)(
         np.asarray(a), b, backend=case.backend, device="cpu")
-    out = jax.tree.map(lambda t: jnp.asarray(t.numpy()), out)
+    if isinstance(out, tiles.TileQR):
+        # the reference's TileQR of the port's R and reflectors, which its
+        # _check_qr_tiled reconstructs Q from
+        out = ref_tiles.TileQR(r=jnp.asarray(out.r.numpy()), factors=tuple(
+            ref_tiles.TileReflector(v=jnp.asarray(f.v.numpy()),
+                                    t=jnp.asarray(f.t.numpy()), col=f.col,
+                                    rows0=f.rows0, rows1=f.rows1)
+            for f in out.factors))
+    else:
+        out = jax.tree.map(lambda t: jnp.asarray(t.numpy()), out)
     base, _ = parse_variant(case.variant)
     check = conformance.VARIANT_CHECKS.get((case.dmf, base),
                                            conformance.CHECKS[case.dmf])

@@ -22,6 +22,7 @@ from repro_torch.core import band_reduction, cholesky, gauss_jordan, ldlt, \
 from repro_torch.kernels import _build
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import api, convert
+from repro_torch import tune
 from repro_torch.solve import (CholeskyFactors, HessenbergFactors,
                                LDLTFactors, LUFactors, QRCPFactors,
                                QRFactors, cholesky_factor, gecon, gehrd,
@@ -39,6 +40,8 @@ import repro_torch.core.band_reduction
 import repro_torch.configs, repro_torch.models.api, repro_torch.models.convert
 import repro_torch.serve.engine, repro_torch.serve.metrics
 import repro_torch.launch.serve
+import repro_torch.core.tiles, repro_torch.tune, repro_torch.tune.sweep
+import repro_torch.obs.report, repro_torch.obs.export
 from repro_torch.kernels import _build
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -73,10 +76,22 @@ def test_no_source_file_imports_jax_or_the_reference():
             PORT / "serve" / "metrics.py",
             PORT / "launch" / "serve.py", PORT / "core" / "ldlt.py",
             PORT / "core" / "gauss_jordan.py",
-            PORT / "core" / "band_reduction.py"} <= set(files)
+            PORT / "core" / "band_reduction.py", PORT / "core" / "tiles.py",
+            PORT / "obs" / "report.py", PORT / "obs" / "export.py",
+            PORT / "tune" / "__init__.py", PORT / "tune" / "cache.py",
+            PORT / "tune" / "model.py", PORT / "tune" / "schedule.py",
+            PORT / "tune" / "sweep.py"} <= set(files)
     offenders = [str(f.relative_to(SRC)) for f in files
                  if _FORBIDDEN.search(f.read_text())]
     assert offenders == []
+
+
+def test_chip_smoke_and_tools_import_no_jax_or_the_reference():
+    scripts = [SRC.parent / "chip_smoke.py",
+               *sorted((SRC.parent / "tools").glob("*.py"))]
+    assert len(scripts) > 1
+    assert [str(f.name) for f in scripts
+            if _FORBIDDEN.search(f.read_text())] == []
 
 
 @pytest.mark.parametrize("entry", ["lu_factor", "gesv", "variant",
@@ -90,7 +105,8 @@ def test_no_source_file_imports_jax_or_the_reference():
                                    "ldlt_factor", "getri_gj",
                                    "ldlt_from_numpy", "ldlt_blocked",
                                    "gj_inverse_blocked", "band_reduction",
-                                   "band_variant",
+                                   "band_variant", "tiled", "tuned",
+                                   "search",
                                    "init_params", "init_decode_cache",
                                    "params_from_numpy", "serve_main",
                                    "serve_rwkv"])
@@ -133,6 +149,9 @@ def test_entry_points_default_to_the_gpu_and_raise_without_one(
             a, 2, backend="torch"),
         "band_variant": lambda: lookahead.get_variant(
             "band_reduction", "la")(a, 2),
+        "tiled": lambda: lookahead.get_variant("cholesky", "tiled")(a, 2),
+        "tuned": lambda: lookahead.get_variant("lu", "tuned")(a, 2),
+        "search": lambda: tune.search("lu", 4, blocks=(2,)),
         "init_params": lambda: api.init_params(small, 0),
         "init_decode_cache": lambda: api.init_decode_cache(small, 1, 8),
         "params_from_numpy": lambda: convert.params_from_numpy(

@@ -1810,3 +1810,80 @@ def test_gauss_jordan_in_place_update_equals_an_explicit_copy(card, dtype):
     assert torch.equal(got, ref)
     # and the look-ahead variant, whose column ranges take the same kernel
     assert torch.equal(get_variant("gauss_jordan", "la2")(a, b), ref)
+
+
+# ---------------------------------------------------------------------------
+# The tile-DAG backend and "tuned" dispatch on the card.
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tiled_cholesky_is_the_rtm_factor(card, dtype):
+    """Tiled Cholesky's POTRF is the Cholesky panel kernel on a diagonal
+    tile, its TRSM the right TRSM kernel a tile at a time, its SYRK and
+    GEMM the GEMM kernel a tile at a time: with row-decomposable kernels,
+    the bits of ``rtm`` (and ``mtb``) at the same block."""
+    n, b = 1024, 128
+    a = _spd(n, dtype, card, 71)
+    ops.reset_launches()
+    tiled = get_variant("cholesky", "tiled")(a, b)
+    launched = ops.launches()
+    for name in ("cholesky_panel", "trsm_right_lower_t", "gemm_accum"):
+        assert launched[name] > 0, name
+    assert torch.equal(tiled, get_variant("cholesky", "rtm")(a, b))
+    assert torch.equal(tiled, get_variant("cholesky", "mtb")(a, b))
+    assert torch.equal(tiled, get_variant("cholesky", "tiled")(a, b))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tiled_qr_is_deterministic_and_one_tile_is_geqrf(card, dtype):
+    from repro_torch.core import tiles
+
+    m, n, b = 1024, 512, 128
+    a = _randn((m, n), dtype, card, seed=72)
+    t1, t2 = tiles.qr_tiles(a, b), tiles.qr_tiles(a, b)
+    assert torch.equal(t1.r, t2.r)
+    for f1, f2 in zip(t1.factors, t2.factors, strict=True):
+        assert torch.equal(f1.v, f2.v) and torch.equal(f1.t, f2.t)
+    q = tiles.qr_form_q(t1).double()
+    assert _rel(q @ t1.r.double(), a) < _tol(dtype, m, n)
+    assert float(torch.linalg.matrix_norm(
+        q.mT @ q - torch.eye(m, dtype=torch.float64, device=card))) < \
+        _tol(dtype, m, n)
+    one = _randn((512, 256), dtype, card, seed=73)
+    single = tiles.qr_tiles(one, 512)
+    packed, _ = get_variant("qr", "mtb")(one, 512)
+    assert len(single.factors) == 1
+    assert torch.equal(single.r, torch.triu(packed))
+
+
+def test_tuned_dispatches_a_hand_written_entry(card, tmp_path):
+    from repro_torch import tune
+
+    n, dtype = 512, torch.float64
+    a = _randn((n, n), dtype, card, seed=74)
+    s = _spd(n, dtype, card, 75)
+    rhs = _randn((n, 4), dtype, card, seed=76)
+    cache = tune.TuneCache(tmp_path / "tune.json")
+    old = tune.set_default_cache(cache)
+    try:
+        cache.put(tune.cache_key("lu", n, dtype, "cuda@cuda"),
+                  tune.TuneConfig(dmf="lu", shape=(n, n), dtype="float64",
+                                  backend="cuda@cuda", variant="la2",
+                                  schedule=(192, 192, 128), seconds=1.0,
+                                  baseline_seconds=1.0, depth=2))
+        # the winner's factor; the solve at the caller's block (128)
+        fac = lu_factor(a, variant="tuned")
+        want = lu_factor(a, (192, 192, 128), variant="la2")
+        assert torch.equal(fac.lu, want.lu)
+        assert torch.equal(fac.ipiv, want.ipiv)
+        assert torch.equal(gesv(a, rhs, variant="tuned"), fac.solve(rhs))
+        # an entry measured on the CPU is not served on the card: la at
+        # the caller's block
+        cache.put(tune.cache_key("cholesky", n, dtype, "cuda@cpu"),
+                  tune.TuneConfig(dmf="cholesky", shape=(n, n),
+                                  dtype="float64", backend="cuda@cpu",
+                                  variant="mtb", schedule=(64,), seconds=1.0,
+                                  baseline_seconds=1.0))
+        assert torch.equal(posv(s, rhs, 96, variant="tuned"),
+                           posv(s, rhs, 96, variant="la"))
+    finally:
+        tune.set_default_cache(old)

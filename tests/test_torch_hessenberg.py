@@ -238,7 +238,7 @@ def test_engine_issues_hooks_in_reference_order(variant):
 
 def test_lookahead_exclusion_and_error_paths():
     a = _rand((12, 12), 8, np.float64)
-    assert lookahead.list_variants("hessenberg") == ("mtb", "rtm")
+    assert lookahead.list_variants("hessenberg") == ("mtb", "rtm", "tuned")
     for variant in ("la", "la2", "la_mb", "tiled"):
         with pytest.raises(KeyError, match="excluded by policy"):
             lookahead.get_variant("hessenberg", variant)

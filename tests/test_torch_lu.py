@@ -153,10 +153,13 @@ def test_tracing_is_bitwise_invisible():
 
 
 def test_variant_registry():
-    for dmf in ("lu", "cholesky", "qr", "qrcp_local"):
+    for dmf in ("lu", "qrcp_local"):
         assert lookahead.list_variants(dmf) == ("mtb", "rtm", "la", "la2",
-                                                "la_mb")
-    assert lookahead.list_variants("qrcp") == ("mtb", "rtm")
+                                                "la_mb", "tuned")
+    for dmf in ("cholesky", "qr"):
+        assert lookahead.list_variants(dmf) == ("mtb", "rtm", "tiled", "la",
+                                                "la2", "la_mb", "tuned")
+    assert lookahead.list_variants("qrcp") == ("mtb", "rtm", "tuned")
     assert lookahead.parse_variant("la3") == ("la", 3)
     assert lookahead.parse_variant("la_mb2") == ("la_mb", 2)
     assert lookahead.parse_variant("mtb") == ("mtb", 1)
@@ -165,10 +168,11 @@ def test_variant_registry():
     assert lookahead.deepen("la", 1) == "la"
     with pytest.raises(ValueError):
         lookahead.deepen("mtb", 2)
-    with pytest.raises(KeyError, match="Queue 1 item 13"):
-        lookahead.get_variant("lu", "tuned")
-    with pytest.raises(KeyError, match="Queue 1 item 15"):
-        lookahead.get_variant("cholesky", "tiled")
+    assert lookahead.get_variant("lu", "tuned").__name__ == "lu_tuned"
+    assert lookahead.get_variant("cholesky", "tiled").__name__ == \
+        "_cholesky_tiles"
+    with pytest.raises(KeyError, match="not available"):
+        lookahead.get_variant("lu", "tiled")
     with pytest.raises(KeyError, match="unknown DMF"):
         lookahead.get_variant("svd", "la")
     assert set(lookahead.FACTORIZATIONS) == {

@@ -233,8 +233,12 @@ def test_error_paths():
         qr_factor(a, 16, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="rhs rows"):
         qr_factor(a, 16, device="cpu").solve(rhs[:5])
-    with pytest.raises(KeyError, match="Queue 1 item 15"):
-        lookahead.get_variant("qr", "tiled")
+    wide_tiled = qr_factor(_rand((4, 6), 6, np.float64), 2, variant="tiled",
+                           device="cpu")
+    with pytest.raises(ValueError, match="m >= n"):
+        wide_tiled.solve(np.ones((4, 1)))
+    with pytest.raises(ValueError, match="square"):
+        wide_tiled.logdet()
     with pytest.raises(ValueError, match="larft: tau"):
         panel_qr.larft(torch.ones(4, 3, dtype=torch.float64),
                        torch.ones(2, dtype=torch.float64))

@@ -222,9 +222,9 @@ def test_factors_carry_across_packages():
 
 def test_lookahead_exclusion_and_error_paths():
     a = _rand((12, 8), 8, np.float64)
-    assert lookahead.list_variants("qrcp") == ("mtb", "rtm")
+    assert lookahead.list_variants("qrcp") == ("mtb", "rtm", "tuned")
     assert lookahead.list_variants("qrcp_local") == ("mtb", "rtm", "la",
-                                                     "la2", "la_mb")
+                                                     "la2", "la_mb", "tuned")
     for variant in ("la", "la2", "la_mb", "tiled"):
         with pytest.raises(KeyError, match="excluded by policy"):
             lookahead.get_variant("qrcp", variant)
