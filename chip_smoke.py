@@ -190,6 +190,26 @@
     the same inputs (gated), and token-by-token decode
     from position 0 against the full forward over 256 tokens (float32, 4
     layers; recorded, not gated: the reference's clip).
+15a. batched solves: ``gesv_batched`` and ``posv_batched`` with B 64 and
+    n 256, block 32 (f64 and f32), then ``lu_factor_batched`` /
+    ``cholesky_factor_batched`` and ``solve_batched`` with two fresh
+    right-hand-side batches: every system bitwise the unbatched driver's,
+    scaled residuals under 100, within the drivers' bound of batched
+    ``torch.linalg.solve`` / ``cholesky_solve`` (cuSOLVER), whose wall ms
+    stand beside the port's, with the kernel launches of the batched call.
+15b. the solve server (``SolveServer``) on two request mixes, closed loop
+    (submit, ``pump`` after each, ``drain``), every response bitwise the
+    unbatched driver on the raw shape and within the drivers' bound of
+    ``torch.linalg.solve`` / ``lstsq``: mix A, the reference's server
+    traffic (its ``bench_serve_solver.py`` MIX, 512 requests, f32 and
+    f64, ``max_batch`` 16, ``max_wait_s`` 0.005, block 32), then a
+    factor-once/solve-many round (64 distinct ``gesv``/``posv`` matrices,
+    4 rounds of fresh right-hand sides, ``cache=True``: hit rate 0.75)
+    and the one-at-a-time ``gesv`` loop at n 48 (the reference's naive
+    baseline); mix B, the larger systems of per-head whitening and
+    per-expert normal equations (128 requests, f64, block 128). Each
+    prints req/s, p50/p99, batches, buckets (``compiles``), hit rate,
+    launches by kernel and the card's name and power limit.
 
 Launch counts are set to 0 just before each path and read just after it;
 each kernel of a path must have launched in it (``flash_attention`` and
@@ -276,6 +296,22 @@ TILE_BLOCKS = (256, 512)         # 9d: tiled Cholesky's tiles at n = N
 TILE_QR_BLOCK = 256              # 9d: tiled QR's tiles at QR_M x QR_N
 SINGLE_TILE = (512, 256)         # 9d: one tile covering the matrix
 TUNE_BLOCKS = (96, 128, 192, 256, 384)   # 9e: the LU and Cholesky sweeps
+BATCH_B, BATCH_N, BATCH_BLOCK = 64, 256, 32   # 15a: the batched drivers
+#: 15b, mix A: the reference's server traffic (its bench_serve_solver MIX):
+#: (dmf, m, n, (nrhs low, high), weight)
+SERVER_MIX_A = (("gesv", 48, 48, (2, 2), 4), ("gesv", 33, 33, (1, 1), 3),
+                ("gesv", 64, 64, (4, 4), 3), ("posv", 40, 40, (2, 2), 2),
+                ("gels", 56, 30, (2, 2), 2), ("geqp3", 80, 17, (1, 1), 1))
+#: mix B: the larger systems of per-head whitening and per-expert normal
+#: equations, each kind alike, 1 to 16 right-hand sides
+SERVER_MIX_B = tuple((dmf, m, n, (1, 16), 1) for dmf, m, n in (
+    ("gesv", 100, 100), ("gesv", 250, 250), ("gesv", 500, 500),
+    ("gesv", 1000, 1000), ("posv", 128, 128), ("posv", 384, 384),
+    ("posv", 768, 768), ("gels", 1500, 120), ("gels", 3000, 250),
+    ("geqp3", 1000, 100)))
+MIX_A_REQUESTS, MIX_B_REQUESTS = 512, 128
+CACHE_MATRICES, CACHE_ROUNDS = 64, 4   # mix A's factor-once/solve-many round
+NAIVE_CALLS = 200                 # the one-at-a-time gesv baseline at n 48
 
 
 def _as_tuple(x):
@@ -335,9 +371,10 @@ def main() -> int:
     from repro_torch.core import tiles
     from repro_torch.obs import export, report, tracer
     from repro_torch.serve.engine import ServeConfig, ServeEngine
-    from repro_torch.solve import (cholesky_factor, gecon, gehrd, geqp3,
-                                   gesv, getri, ldlt_factor, lu_factor, posv,
-                                   qr_factor)
+    from repro_torch.serve import ServerConfig, SolveServer, shape_class
+    from repro_torch.solve import (batched, cholesky_factor, gecon, gehrd,
+                                   geqp3, gels, gesv, getri, ldlt_factor,
+                                   lu_factor, posv, qr_factor)
 
     dev = torch.device("cuda")
 
@@ -2793,6 +2830,231 @@ def main() -> int:
               for ch in (CONS_RWKV_CHUNK, cfg32.rwkv_chunk)}})
     del params
     torch.cuda.empty_cache()
+
+    # ---- 15a. batched solves: B systems one after another -----------------
+    def rel_over_bound(a, x, x_lib, dtype):
+        """‖x − x_lib‖/‖x_lib‖ over the drivers' 200·max(m,n,8)·eps, that
+        bound scaled by κ₂(A)/max(m,n,8) where A is worse conditioned than
+        that (two backward-stable solvers then differ by up to κ·n·eps)."""
+        m_, n_ = a.shape[-2], a.shape[-1]
+        kappa = float(torch.linalg.cond(a.double()))
+        tol = 200.0 * max(m_, n_, 8) * torch.finfo(dtype).eps \
+            * max(1.0, kappa / max(m_, n_, 8))
+        return float((x.double() - x_lib.double()).norm()
+                     / x_lib.double().norm()) / tol
+
+    new_paths["solve_batched"] = {}
+    ops.reset_launches()
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+        ab = torch.randn(BATCH_B, BATCH_N, BATCH_N, generator=gen, device=dev,
+                         dtype=dtype)
+        spd = ab @ ab.mT + BATCH_N * torch.eye(BATCH_N, device=dev,
+                                               dtype=dtype)
+        bb = [torch.randn(BATCH_B, BATCH_N, NRHS, generator=gen, device=dev,
+                          dtype=dtype) for _ in range(3)]
+        rec = {"phase": "solve_batched", "dtype": str(dtype), "B": BATCH_B,
+               "n": BATCH_N, "nrhs": NRHS, "block": BATCH_BLOCK}
+        worst = 0.0
+        for name, mat, fn, lib, factor, one in (
+                ("gesv", ab, batched.gesv_batched, torch.linalg.solve,
+                 batched.lu_factor_batched, gesv),
+                ("posv", spd, batched.posv_batched,
+                 lambda a_, b_: torch.cholesky_solve(
+                     b_, torch.linalg.cholesky(a_)),
+                 batched.cholesky_factor_batched, posv)):
+            bank(new_paths["solve_batched"])
+            sync()
+            t0 = time.perf_counter()
+            xb = fn(mat, bb[0], BATCH_BLOCK)
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = ops.launches()
+            bank(new_paths["solve_batched"])
+            t0 = time.perf_counter()
+            fb = factor(mat, BATCH_BLOCK)
+            sync()
+            t1 = time.perf_counter()
+            xs = [batched.solve_batched(fb, b_) for b_ in bb[1:]]
+            sync()
+            t2 = time.perf_counter()
+            factor_ms, solve_ms = (t1 - t0) * 1e3, (t2 - t1) * 1e3 / 2
+            bank(new_paths["solve_batched"])
+            for i in range(BATCH_B):
+                for x_, b_ in zip([xb] + xs, bb):
+                    check(torch.equal(x_[i], one(mat[i], b_[i], BATCH_BLOCK)),
+                          f"{name}_batched {dtype}: system {i} is not "
+                          "bitwise the unbatched driver's")
+                    res = scaled_residual(mat[i], x_[i], b_[i], dtype)
+                    check(res < RESIDUAL_LIMIT, f"{name}_batched {dtype}: "
+                          f"system {i} residual {res}")
+                    worst = max(worst, res)
+            ops.reset_launches()   # the unbatched checks are not the path's
+            no_tf32()
+            lib(mat, bb[0])
+            sync()
+            t0 = time.perf_counter()
+            x_lib = lib(mat, bb[0])
+            sync()
+            lib_ms = (time.perf_counter() - t0) * 1e3
+            rel = max(rel_over_bound(mat[i], xb[i], x_lib[i], dtype)
+                      for i in range(BATCH_B))
+            check(rel < 1.0, f"{name}_batched {dtype}: {rel} of the bound "
+                  "from the library's answer")
+            rec[name] = {"batched_ms": ms, "factor_batched_ms": factor_ms,
+                         "solve_batched_ms_per_rhs_batch": solve_ms,
+                         "library_ms": lib_ms, "library_call":
+                             "torch.linalg.solve" if name == "gesv" else
+                             "torch.linalg.cholesky + torch.cholesky_solve",
+                         "rel_err_over_bound": rel,
+                         "launches": {k: v for k, v in launches.items() if v},
+                         "bitwise_equal_to_unbatched": True}
+            del xb, fb, xs, x_lib
+        rec["worst_scaled_residual"] = worst
+        emit(rec)
+        del ab, spd, bb
+    for name in ("gemm_accum", "trsm", "lu_panel", "cholesky_panel"):
+        check(new_paths["solve_batched"].get(name, 0) > 0,
+              f"kernel {name} was not launched on the batched path")
+
+    # ---- 15b. the solve server: two request mixes, answered in full --------
+    def mix_requests(mix, count, dtype, seed):
+        """``count`` requests drawn by weight from ``mix`` ((dmf, m, n,
+        nrhs range, weight)), made on the host from ``seed`` and moved to
+        the card before the clock starts."""
+        rng = np.random.default_rng(seed)
+        w = np.array([k[4] for k in mix], dtype=float)
+        picks = rng.choice(len(mix), size=count, p=w / w.sum())
+        out = []
+        for k in picks:
+            dmf, m_, n_, (r0, r1), _ = mix[k]
+            a_ = rng.standard_normal((m_, n_))
+            if dmf == "posv":
+                a_ = a_ @ a_.T + n_ * np.eye(n_)
+            nrhs = int(rng.integers(r0, r1 + 1))
+            b_ = rng.standard_normal((m_, nrhs))
+            out.append((dmf, torch.tensor(a_, dtype=dtype, device=dev),
+                        torch.tensor(b_, dtype=dtype, device=dev)))
+        return out
+
+    def unbatched(dmf, a_, b_, block):
+        if dmf == "geqp3":
+            return gels(a_, b_, block, pivot=True)
+        return {"gesv": gesv, "posv": posv, "gels": gels}[dmf](a_, b_, block)
+
+    def library(dmf, a_, b_):
+        no_tf32()
+        if dmf in ("gesv", "posv"):
+            return torch.linalg.solve(a_, b_)
+        return torch.linalg.lstsq(a_, b_).solution
+
+    def verify(reqs, xs, block, what):
+        """Every response bitwise the unbatched driver on the raw shape and
+        within the drivers' bound of the library's answer."""
+        worst = 0.0
+        for (dmf, a_, b_), x_ in zip(reqs, xs):
+            check(torch.equal(x_, unbatched(dmf, a_, b_, block)),
+                  f"{what}: a {dmf} {tuple(a_.shape)} response is not "
+                  "bitwise the unbatched driver's")
+            worst = max(worst, rel_over_bound(a_, x_, library(dmf, a_, b_),
+                                             a_.dtype))
+        check(worst < 1.0, f"{what}: {worst} of the bound from the library")
+        return worst
+
+    def closed_loop(cfg_, rounds, cache=False):
+        """Each round's requests submitted (``pump`` after each), then
+        ``drain``; the server, every response in submit order and the wall
+        seconds."""
+        srv = SolveServer(cfg_)
+        xs = []
+        sync()
+        t0 = time.perf_counter()
+        for reqs in rounds:
+            ids = []
+            for dmf, a_, b_ in reqs:
+                ids.append(srv.submit(dmf, a_, b_, cache=cache))
+                srv.pump()
+            srv.drain()
+            xs += [srv.take(i).x for i in ids]
+        sync()
+        return srv, xs, time.perf_counter() - t0
+
+    def serve_record(srv, wall, count, launches):
+        summ, snap = srv.summary(), srv.snapshot()
+        return {"requests": count, "wall_s": wall, "req_per_s": count / wall,
+                "p50_ms": summ["p50_ms"], "p99_ms": summ["p99_ms"],
+                "gflops_per_s": summ["gflops_per_s"],
+                "batches": snap["counter.batches"],
+                "buckets": snap["counter.compiles"],
+                "bucket_fill_mean": snap["hist.bucket_fill.mean"],
+                "padding_waste_mean": snap["hist.padding_waste.mean"],
+                "cache_hit_rate": summ["cache_hit_rate"],
+                "launches": {k: v for k, v in launches.items() if v}}
+
+    new_paths["solve_server"] = {}
+    for mix_name, mix, count, dtypes, block in (
+            ("A", SERVER_MIX_A, MIX_A_REQUESTS, (torch.float32, torch.float64),
+             32),
+            ("B", SERVER_MIX_B, MIX_B_REQUESTS, (torch.float64,), 128)):
+        cfg_ = ServerConfig(max_batch=16, max_wait_s=0.005, block=block)
+        for dtype in dtypes:
+            reqs = mix_requests(mix, count, dtype, SEED)
+            # warm-up: one request of every bucket shape (the plans' caches)
+            first = {}
+            for r_ in reqs:
+                key = shape_class(r_[0], *r_[1].shape, 1, dtype)
+                first.setdefault(key, r_)
+            closed_loop(cfg_, [list(first.values())])
+            ops.reset_launches()
+            srv, xs, wall = closed_loop(cfg_, [reqs])
+            launches = ops.launches()
+            bank(new_paths["solve_server"])
+            rec = {"phase": "solve_server", "mix": mix_name,
+                   "dtype": str(dtype), "block": block, "nvidia_smi": smi,
+                   **serve_record(srv, wall, count, launches)}
+            rec["rel_err_over_bound_worst"] = verify(
+                reqs, xs, block, f"solve_server mix {mix_name} {dtype}")
+            rec["bitwise_equal_to_unbatched"] = True
+            ops.reset_launches()
+            if mix_name == "A":
+                # factor once, solve many: distinct gesv/posv matrices, each
+                # with CACHE_ROUNDS fresh right-hand sides
+                square = [k for k in mix if k[0] in ("gesv", "posv")]
+                mats = mix_requests(square, CACHE_MATRICES, dtype, SEED + 22)
+                rng = np.random.default_rng(SEED + 23)
+                rounds = [[(dmf, a_, torch.tensor(
+                    rng.standard_normal(b_.shape), dtype=dtype, device=dev))
+                    for dmf, a_, b_ in mats] for _ in range(CACHE_ROUNDS)]
+                srv_c, got, wall_c = closed_loop(cfg_, rounds, cache=True)
+                launches = ops.launches()
+                bank(new_paths["solve_server"])
+                asked = [r_ for round_ in rounds for r_ in round_]
+                cached = serve_record(srv_c, wall_c, len(asked), launches)
+                check(cached["cache_hit_rate"] == 1.0 - 1.0 / CACHE_ROUNDS,
+                      f"solve_server cached {dtype}: hit rate "
+                      f"{cached['cache_hit_rate']}")
+                cached["rel_err_over_bound_worst"] = verify(
+                    asked, got, block, f"solve_server cached {dtype}")
+                rec["cached"] = cached
+                ops.reset_launches()
+                # the naive baseline: one gesv at a time at n 48
+                a_, b_ = mix_requests([("gesv", 48, 48, (2, 2), 1)], 1,
+                                      dtype, SEED + 24)[0][1:]
+                gesv(a_, b_, block)
+                sync()
+                t0 = time.perf_counter()
+                for _ in range(NAIVE_CALLS):
+                    gesv(a_, b_, block)
+                sync()
+                rec["naive_gesv_n48_req_per_s"] = \
+                    NAIVE_CALLS / (time.perf_counter() - t0)
+                ops.reset_launches()
+            emit(rec)
+            del reqs, xs, srv
+    for name in ("gemm_accum", "trsm", "lu_panel", "lu_solve_small",
+                 "cholesky_panel", "qr_panel", "larft", "qrcp_panel"):
+        check(new_paths["solve_server"].get(name, 0) > 0,
+              f"kernel {name} was not launched on the solve server's path")
 
     # ---- 16. report --------------------------------------------------------
     sources = {"gemm_accum": "gemm.cu", "trsm": "trsm.cu",

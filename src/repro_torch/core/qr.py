@@ -47,6 +47,7 @@ from repro_torch.core.blocking import BlockSpec, panel_steps
 from repro_torch.core.pipeline import StepOps
 
 __all__ = [
+    "pairwise_sum",
     "qr_unblocked",
     "householder_vector",
     "build_t_matrix",
@@ -63,6 +64,27 @@ __all__ = [
 ]
 
 
+def pairwise_sum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Sum of ``x`` along ``dim`` as an aligned binary tree: the length is
+    padded with zeros to a power of two and adjacent pairs are added level
+    by level.  A term's place in the tree depends on its index alone, so
+    terms appended as zeros (a padded system's extra rows) leave the bits
+    of the sum as they are, whatever the length; elementwise ops only, so
+    no library reduction regroups the terms by shape.  The plain versions'
+    reductions over rows go through it.
+    """
+    x = x.movedim(dim, 0)
+    n = x.shape[0]
+    if n == 0:
+        return x.new_zeros(x.shape[1:])
+    p = 1 << (n - 1).bit_length()
+    if p != n:
+        x = torch.cat([x, x.new_zeros((p - n,) + tuple(x.shape[1:]))])
+    while x.shape[0] > 1:
+        x = x[0::2] + x[1::2]
+    return x[0]
+
+
 def _reflector(x: torch.Tensor, alpha: torch.Tensor):
     """``(tau, beta, denom)`` of the reflector for a column whose part at
     and below the diagonal is ``x`` (``x[0] == alpha``).
@@ -71,7 +93,7 @@ def _reflector(x: torch.Tensor, alpha: torch.Tensor):
     (``‖x‖ == 0``) gives ``tau = 0`` and ``H = I``.  Tensor ops only, so no
     value goes to the host.
     """
-    xnorm = torch.sqrt(torch.dot(x, x))
+    xnorm = torch.sqrt(pairwise_sum(x * x))
     one = torch.ones((), dtype=x.dtype, device=x.device)
     sign = torch.where(alpha >= 0, one, -one)
     beta = -sign * xnorm
@@ -103,7 +125,8 @@ def qr_unblocked(panel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     vectors below it (implicit ``v[j] = 1``); ``H_j = I − tau_j·v_j·v_jᵀ``,
     ``A = H_1·…·H_nb·R``.  ``tau`` has length ``nb``; only the first
     ``min(m, nb)`` columns get a reflector (the rest keep ``tau = 0``).
-    Each column: ``w = tau·(vᵀ·A[:, j+1:])``, then ``A[:, j+1:] −= v·w``.
+    Each column: ``w = tau·(vᵀ·A[:, j+1:])``, then ``A[:, j+1:] −= v·w``;
+    the sums over rows are :func:`pairwise_sum`'s.
     """
     m, nb = panel.shape
     tau = torch.zeros(nb, dtype=panel.dtype, device=panel.device)
@@ -113,7 +136,7 @@ def qr_unblocked(panel: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         v = x / denom
         v[0] = 1.0
         if j + 1 < nb:
-            w = t * (v[None, :] @ panel[j:, j + 1 :])
+            w = t * pairwise_sum(v[:, None] * panel[j:, j + 1 :])[None, :]
             panel[j:, j + 1 :] -= v[:, None] * w
         panel[j + 1 :, j] = v[1:]
         panel[j, j] = beta
@@ -132,11 +155,13 @@ def unpack_v(packed: torch.Tensor, nb: int) -> torch.Tensor:
 def larft_plain(v: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
     """LARFT (forward, columnwise): T with ``H_1…H_nb = I − V·T·Vᵀ``.
 
-    The plain version of the ``larft`` kernel: the Gram ``VᵀV``, then
-    ``T[:j, j] = −tau_j·T[:j, :j]·(VᵀV)[:j, j]``, ``T[j, j] = tau_j``.
+    The plain version of the ``larft`` kernel: the Gram ``VᵀV``, its sums
+    over the rows :func:`pairwise_sum`'s (taken 64 columns at a time),
+    then ``T[:j, j] = −tau_j·T[:j, :j]·(VᵀV)[:j, j]``, ``T[j, j] = tau_j``.
     """
     nb = tau.shape[0]
-    vtv = v.mT @ v[:, :nb]
+    vtv = torch.cat([pairwise_sum(v[:, :nb, None] * v[:, None, j : j + 64])
+                     for j in range(0, nb, 64)] or [v.new_zeros((0, 0))], 1)
     t = torch.zeros((nb, nb), dtype=v.dtype, device=v.device)
     for j in range(nb):
         if j:

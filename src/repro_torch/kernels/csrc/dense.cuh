@@ -72,10 +72,18 @@ __device__ void solve_vector(int64_t b, const T* t, int64_t ldt, T* x, int64_t x
 // ---------------------------------------------------------------------------
 // Cooperative grids over the rows of a panel.
 // ---------------------------------------------------------------------------
-// The rows [r0, r1) that block `blk` of `G` owns in an m-row panel.
+// The rows [r0, r1) that block `blk` of `G` owns in an m-row panel: chunks
+// of ceil(m / G) rows, at least min_chunk.  The QR and QRCP panels pass
+// their minimum rows a block, and their plans take G = ceil(m / min_chunk)
+// blocks where that fits the grid: every block but the last then owns
+// min_chunk rows, so which block owns a row, and where, depends on the row
+// alone.  A panel padded with zero rows below (a bucketed system) so gives
+// each block the same rows plus zeros at the end, and each cross-block sum
+// the same partials plus zero ones after them: the same bits.
 __device__ __forceinline__ void owned_rows(int64_t m, int G, int blk, int64_t* chunk,
-                                           int64_t* r0, int64_t* r1) {
-  *chunk = (m + G - 1) / G;
+                                           int64_t* r0, int64_t* r1, int64_t min_chunk = 1) {
+  const int64_t even = (m + G - 1) / G;
+  *chunk = even > min_chunk ? even : min_chunk;
   *r0 = min(m, blk * *chunk);
   *r1 = min(m, *r0 + *chunk);
 }
@@ -217,9 +225,9 @@ __host__ __device__ constexpr int colsum_groups(int64_t nc, int threads) {
 
 template <typename T, int U, bool SQ, bool CG, typename I>
 __device__ __forceinline__ void col_sums_impl(const T* m, I ld, const T* x, I xs, int lo, int n,
-                                              int nc, T* red, T* out) {
+                                              int nc, T* red, T* out, bool flat) {
   const int tid = threadIdx.x, threads = blockDim.x;
-  const int cw = nc < threads ? nc : threads, rg = colsum_groups(nc, threads);
+  const int cw = nc < threads ? nc : threads, rg = flat ? 1 : colsum_groups(nc, threads);
   const int grp = tid / cw, ci = tid - grp * cw;
   if (grp < rg) {
     for (int i0 = ci; i0 < nc; i0 += cw * U) {
@@ -267,17 +275,19 @@ __device__ __forceinline__ void col_sums_impl(const T* m, I ld, const T* x, I xs
 // COLSUM_COLS at once where the columns outnumber the threads) and row
 // groups rr = g (mod rg), rg = colsum_groups(nc); the groups' sums are
 // added in group order through red[] (blockDim.x entries).  Each sum takes
-// ceil((n - lo) / rg) terms in turn, then rg - 1.  CG: M is in device memory
-// and streamed past L1.
+// ceil((n - lo) / rg) terms in turn, then rg - 1.  `flat` takes rg = 1
+// whatever nc: each sum is then one chain over the rows in order, the same
+// for a block of any width (a padded system's extra columns).  CG: M is in
+// device memory and streamed past L1.
 constexpr int COLSUM_COLS = 8;
 template <typename T, bool SQ, bool CG = false, typename I>
 __device__ __forceinline__ void block_col_sums(const T* m, I ld, const T* x, I xs, int lo, int n,
-                                               int nc, T* red, T* out) {
+                                               int nc, T* red, T* out, bool flat = false) {
   if (nc <= 0) return;
   if (nc <= static_cast<int>(blockDim.x))
-    col_sums_impl<T, 1, SQ, CG>(m, ld, x, xs, lo, n, nc, red, out);
+    col_sums_impl<T, 1, SQ, CG>(m, ld, x, xs, lo, n, nc, red, out, flat);
   else
-    col_sums_impl<T, COLSUM_COLS, SQ, CG>(m, ld, x, xs, lo, n, nc, red, out);
+    col_sums_impl<T, COLSUM_COLS, SQ, CG>(m, ld, x, xs, lo, n, nc, red, out, flat);
 }
 
 // ---------------------------------------------------------------------------

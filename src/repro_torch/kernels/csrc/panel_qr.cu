@@ -16,7 +16,13 @@
 //
 // Design: a cooperative grid of G blocks of QR_THREADS threads, at most one
 // block an SM (G = SMs for tall panels, fewer for short ones: at least
-// QR_MIN_ROWS rows a block).  Each block owns a contiguous chunk of rows.
+// QR_MIN_ROWS rows a block).  Each block owns a contiguous chunk of rows:
+// exactly QR_MIN_ROWS of them (the last block the rest) where the panel has
+// at most QR_MIN_ROWS rows an SM, so that a panel padded with zero rows
+// (a bucketed system, serve/bucketing.py) sums the same partials in the
+// same blocks and adds only zero ones; every other sum below is fixed by
+// the index of its terms, not by nb, so padded columns change nothing
+// either, and the padded panel's real part is bitwise the raw panel's.
 //   * Rows resident: where the chunk fits shared memory (about 208 rows of
 //     nb = 128 in f64, so m up to about 27000 on 132 SMs) the block loads
 //     it once, factors all nb columns there and writes it back once.
@@ -428,7 +434,7 @@ qr_panel_kernel(int64_t m, int64_t nb64, T* a, int64_t lda, T* tau, T* t, T* wsp
   const int G = gridDim.x, nb = static_cast<int>(nb64);
   const int lane = threadIdx.x & 31, q = threadIdx.x >> 5;
   int64_t chunk, r0, r1;
-  owned_rows(m, G, blockIdx.x, &chunk, &r0, &r1);
+  owned_rows(m, G, blockIdx.x, &chunk, &r0, &r1, QR_MIN_ROWS);
   T* sv = reinterpret_cast<T*>(smem_raw);
   T* rv = sv + nb;
   T* wv = rv + nb;
@@ -475,7 +481,7 @@ larft_kernel(int64_t m, int64_t nb64, const T* v, int64_t ldv, const T* tau, T* 
   const int G = gridDim.x, nb = static_cast<int>(nb64);
   const int lane = threadIdx.x & 31, q = threadIdx.x >> 5;
   int64_t chunk, r0, r1;
-  owned_rows(m, G, blockIdx.x, &chunk, &r0, &r1);
+  owned_rows(m, G, blockIdx.x, &chunk, &r0, &r1, QR_MIN_ROWS);
   const int n = static_cast<int>(r1 - r0);
   const Workspace<T> ws(wsp, nb, G);
   T* tail = reinterpret_cast<T*>(smem_raw) + (3 + QR_WARPS) * nb;  // after qr_extras(nb)
@@ -513,7 +519,8 @@ static cudaError_t qr_plan(int64_t m, int64_t nb, int64_t* out) {
   const int64_t cap = sms < QR_MAX_BLOCKS ? sms : QR_MAX_BLOCKS;
   int64_t g = (m + QR_MIN_ROWS - 1) / QR_MIN_ROWS;
   g = g < cap ? g : cap;
-  const int64_t chunk = (m + g - 1) / g;
+  const int64_t even = (m + g - 1) / g;
+  const int64_t chunk = even > QR_MIN_ROWS ? even : QR_MIN_ROWS;  // as owned_rows
   // the Gram in shared memory for the recurrence where it fits, and the
   // larft kernel's rows of V where they fit too
   const size_t recur = qr_recurrence_smem<T>(nb) <= limit ? qr_recurrence_smem<T>(nb) : extras;

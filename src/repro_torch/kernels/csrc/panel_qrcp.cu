@@ -24,7 +24,11 @@
 // Design: a cooperative grid of G blocks of QP_THREADS threads, at most one
 // block an SM (G = SMs for tall blocks, at least QP_MIN_ROWS rows a block;
 // the plan in kernels/panel_qrcp.py sizes it).  Each block owns a contiguous
-// chunk of rows; where the chunk of the whole r x c block fits shared
+// chunk of rows (exactly QP_MIN_ROWS where the block has at most that many
+// rows an SM; then every column sum is one chain over the block's rows,
+// "flat", so a block padded with zero rows and tiny-norm columns (a
+// bucketed geqp3, serve/bucketing.py) gives its real columns the same bits
+// and pivots); where the chunk of the whole r x c block fits shared
 // memory (the window: 125 rows of 128 in f64) the block loads it once, runs
 // every step there and writes it back once ("resident"), else the same code
 // runs on the rows in device memory ("streamed"), with the rows' first
@@ -124,8 +128,11 @@ struct QpCol {
 // RESIDENT: the block's rows live in shared memory (row-major, ld c +
 // QP_PAD) after qrcp_extras(steps) bytes.  Otherwise, where vcopy is set,
 // their first `steps` columns (V below the diagonal) are kept there (ld
-// steps + QP_PAD) for bringing column j current.
-template <typename T, bool RESIDENT>
+// steps + QP_PAD) for bringing column j current.  FLAT: the grid's blocks
+// own QP_MIN_ROWS rows each (r <= QP_MIN_ROWS * G), and every column sum
+// is one chain over the block's rows, whatever c (a compile-time case, so
+// the other grids run the code they ran before it).
+template <typename T, bool RESIDENT, bool FLAT>
 __global__ void __launch_bounds__(QP_THREADS, 1)
 qrcp_panel_kernel(int64_t r, int64_t c64, int64_t steps64, T* b, int64_t ldb, T* v, T* ft,
                   T* tau, int32_t* piv, unsigned char* wsp, int owners, int vcopy) {
@@ -136,7 +143,7 @@ qrcp_panel_kernel(int64_t r, int64_t c64, int64_t steps64, T* b, int64_t ldb, T*
   const int lane = tid & 31, warp = tid >> 5;
   const int c = static_cast<int>(c64), steps = static_cast<int>(steps64);
   int64_t chunk, r0, r1;
-  owned_rows(r, G, blk, &chunk, &r0, &r1);
+  owned_rows(r, G, blk, &chunk, &r0, &r1, QP_MIN_ROWS);
   const int nr = static_cast<int>(r1 - r0);
   const bool owner = blk < owners;
 
@@ -175,7 +182,7 @@ qrcp_panel_kernel(int64_t r, int64_t c64, int64_t steps64, T* b, int64_t ldb, T*
   // the first norms: the blocks' column sums of squares, then the owners'
   // cross-block sums and candidates for step 0
   block_col_sums<T, true, !RESIDENT>(&B.at(0, 0), B.ld, static_cast<const T*>(nullptr), I(0), 0,
-                                     nr, c, red, ps);
+                                     nr, c, red, ps, FLAT);
   grid.sync();
   if (owner) {
     T bv = T(-1);
@@ -257,7 +264,7 @@ qrcp_panel_kernel(int64_t r, int64_t c64, int64_t steps64, T* b, int64_t ldb, T*
     // P_i over the rows below j (P_j = |x|^2 there)
     const int below = static_cast<int>(j + 1 - r0 < 0 ? 0 : (j + 1 - r0 > nr ? nr : j + 1 - r0));
     block_col_sums<T, false, !RESIDENT>(&B.at(0, 0), B.ld, &B.at(0, j), B.ld, below, nr, c, red,
-                                        ps);
+                                        ps, FLAT);
     grid.sync();
 
     // B. warp 0 sums |x|^2 below row j and reads alpha; meanwhile the
@@ -387,7 +394,8 @@ qrcp_panel_kernel(int64_t r, int64_t c64, int64_t steps64, T* b, int64_t ldb, T*
 // streamed (0), rows a block (chunk), dynamic shared memory bytes,
 // workspace bytes, threads a block, owner blocks, lanes a row (log2) of
 // the bring-current, the most steps whose shared memory fits, V's rows in
-// shared memory on the streamed route (1) or not (0)}.
+// shared memory on the streamed route (1) or not (0), flat column sums
+// (1: fixed 32-row blocks) or not (0)}.
 template <typename T>
 static cudaError_t qrcp_plan(int64_t r, int64_t c, int64_t steps, int64_t* out) {
   if (r <= 0 || c <= 0 || steps <= 0) return cudaErrorInvalidValue;
@@ -400,17 +408,23 @@ static cudaError_t qrcp_plan(int64_t r, int64_t c, int64_t steps, int64_t* out) 
   int64_t g = (r + QP_MIN_ROWS - 1) / QP_MIN_ROWS;
   g = g < sms ? g : sms;
   g = g < PANEL_MAX_BLOCKS ? g : PANEL_MAX_BLOCKS;
-  const int64_t chunk = (r + g - 1) / g;
+  const int64_t even = (r + g - 1) / g;
+  const int64_t chunk = even > QP_MIN_ROWS ? even : QP_MIN_ROWS;  // as owned_rows
+  const bool flat = chunk == QP_MIN_ROWS;
   const size_t whole = extras + static_cast<size_t>(chunk * (c + QP_PAD)) * sizeof(T);
   bool resident = whole <= limit;
-  if (resident) err = fits_one_block(qrcp_panel_kernel<T, true>, QP_THREADS, whole, &resident);
+  if (resident)
+    err = flat ? fits_one_block(qrcp_panel_kernel<T, true, true>, QP_THREADS, whole, &resident)
+               : fits_one_block(qrcp_panel_kernel<T, true, false>, QP_THREADS, whole, &resident);
   if (err != cudaSuccess) return err;
   // streamed: V's rows in shared memory where they fit
   const size_t vrows = extras + static_cast<size_t>(chunk * (steps + QP_PAD)) * sizeof(T);
   const bool vcopy = !resident && vrows <= limit;
   const size_t smem = resident ? whole : vcopy ? vrows : extras;
   bool streamed = true;
-  if (!resident) err = fits_one_block(qrcp_panel_kernel<T, false>, QP_THREADS, smem, &streamed);
+  if (!resident)
+    err = flat ? fits_one_block(qrcp_panel_kernel<T, false, true>, QP_THREADS, smem, &streamed)
+               : fits_one_block(qrcp_panel_kernel<T, false, false>, QP_THREADS, smem, &streamed);
   if (err != cudaSuccess) return err;
   if (!streamed) return cudaErrorInvalidConfiguration;
   const int64_t own = (c + QP_WARPS - 1) / QP_WARPS;
@@ -423,6 +437,7 @@ static cudaError_t qrcp_plan(int64_t r, int64_t c, int64_t steps, int64_t* out) 
   out[6] = own < g ? own : g;
   out[7] = group_lg(chunk, QP_THREADS);
   out[9] = vcopy ? 1 : 0;
+  out[10] = flat ? 1 : 0;
   return cudaSuccess;
 }
 
@@ -441,10 +456,15 @@ static cudaError_t launch_qrcp(int64_t r, int64_t c, int64_t steps, void* b, int
   int32_t* pp = static_cast<int32_t*>(piv);
   unsigned char* wp = static_cast<unsigned char*>(ws);
   void* args[] = {&r, &c, &steps, &bp, &ldb, &vp, &fp, &tp, &pp, &wp, &owners, &vcopy};
-  return resident ? launch_cooperative(qrcp_panel_kernel<T, true>, grid, smem, args, stream,
-                                       QP_THREADS)
-                  : launch_cooperative(qrcp_panel_kernel<T, false>, grid, smem, args, stream,
-                                       QP_THREADS);
+  if (r <= QP_MIN_ROWS * grid)  // the plan's flat case: QP_MIN_ROWS rows a block
+    return resident ? launch_cooperative(qrcp_panel_kernel<T, true, true>, grid, smem, args,
+                                         stream, QP_THREADS)
+                    : launch_cooperative(qrcp_panel_kernel<T, false, true>, grid, smem, args,
+                                         stream, QP_THREADS);
+  return resident ? launch_cooperative(qrcp_panel_kernel<T, true, false>, grid, smem, args,
+                                       stream, QP_THREADS)
+                  : launch_cooperative(qrcp_panel_kernel<T, false, false>, grid, smem, args,
+                                       stream, QP_THREADS);
 }
 
 extern "C" int repro_qrcp_panel_plan_f32(int64_t r, int64_t c, int64_t steps, int64_t* out) {

@@ -7,10 +7,12 @@ The port of :mod:`repro.kernels.ops`'s ``PALLAS_BACKEND``:
 * ``update`` → the same kernel as GEMM-accumulate, ``C -= A·B`` in place —
   the trailing update, which the reference's backend never sent to its
   fused kernel;
-* ``trsm``   → the TRSM kernel for left, non-transposed solves, lower or
-  upper, and for the right, lower, transposed solve (the Cholesky panel's,
-  where a caller composes that panel itself); every other case goes to
-  the library solve, as the reference sends it to ``trsm_jnp``;
+* ``trsm``   → the TRSM kernel for left solves, lower or upper (a
+  transposed one on a contiguous copy of ``Tᵀ``: the Cholesky solve's
+  ``Lᵀ`` sweep, ``LUFactors.solve(trans=True)``), and for the right,
+  lower, transposed solve (the Cholesky panel's, where a caller composes
+  that panel itself); the other right solves go to the library solve, as
+  the reference sends them to ``trsm_jnp``;
 * ``panel_fns`` = :data:`PANEL_KERNELS` → the GETF2 panel kernel (LU),
   the Cholesky kernel of the fused panel update launched with no update
   terms (Cholesky: POTF2 and the solve below it, which the reference
@@ -75,9 +77,14 @@ def update(c, a, b):
 
 def trsm(t, b, *, side="left", lower=True, trans=False, unit_diagonal=False,
          out=None):
-    """Backend TRSM: the kernels for left non-transposed solves and for
-    right, lower, transposed ones."""
-    if side == "left" and not trans:
+    """Backend TRSM: the kernels for left solves and for right, lower,
+    transposed ones.  A left transposed solve takes a contiguous copy of
+    ``Tᵀ`` and runs the kernel's other triangle on it, so it rounds as the
+    kernel's substitution does whatever the block's size (a padded system's
+    blocks too), which no library solve promises."""
+    if side == "left":
+        if trans:
+            t, lower = t.mT.contiguous(), not lower
         return _tr.trsm(t, b, lower=lower, unit_diagonal=unit_diagonal,
                         out=out)
     if side == "right" and lower and trans:

@@ -3,8 +3,11 @@
 Kernel: ``csrc/panel_qr.cu`` (CUDA C++ for sm_90a), replacing the TPU
 kernel ``repro/kernels/panel_qr.py::qr_panel``.  The source note there says
 what bounds it on an H100 and how its design answers that: a cooperative
-grid of at most one block an SM over the panel's rows, each block's rows
-kept in shared memory where they fit (the ``resident`` route, else
+grid of at most one block an SM over the panel's rows (exactly 32 rows a
+block where the panel has at most 32 rows an SM, so a panel padded with
+zero rows sums its real rows in the same blocks, and a bucketed system's
+answer is the raw one's), each block's rows kept in shared memory where
+they fit (the ``resident`` route, else
 ``streamed`` from device memory), two grid-wide barriers a column, every
 cross-block sum taken over per-block partials in a fixed order (no
 atomics), so a panel gives the same bits on every run.

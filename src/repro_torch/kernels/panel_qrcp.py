@@ -8,7 +8,9 @@ dependent steps) and how its design answers that: a cooperative grid of at
 most one block an SM over the block's rows, each block's rows kept in
 shared memory where they fit (the ``resident`` route, e.g. the 16384 × 128
 window) else ``streamed`` from device memory (the 16384 × 4096 global
-block), the columns owned by the first blocks, two grid barriers a step,
+block), 32 rows a block and one chain a column sum (``flat``) where the
+block has at most 32 rows an SM (a padded block then gives its real part
+the raw block's bits and pivots), the columns owned by the first blocks, two grid barriers a step,
 every cross-block sum a warp's in a fixed order, so a block gives the same
 bits and the same pivots on every run.
 
@@ -45,7 +47,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.qr import _reflector
+from repro_torch.core.qr import _reflector, pairwise_sum
 from repro_torch.kernels import _build
 
 __all__ = ["qrcp_panel", "qrcp_panel_plain", "plan"]
@@ -70,9 +72,12 @@ def _outputs(block: torch.Tensor, steps: int):
 
 def qrcp_panel_plain(block: torch.Tensor, steps: int):
     """The xLAQPS sweep as PyTorch ops, in place; ``(block, v, f, tau,
-    piv)`` with ``f = Fᵀ.mT`` as the kernel returns it."""
+    piv)`` with ``f = Fᵀ.mT`` as the kernel returns it.  Every sum is
+    :func:`~repro_torch.core.qr.pairwise_sum`'s over elementwise products,
+    so an element's value depends only on its own terms, never on how many
+    rows or columns the block has."""
     v, ft, tau, piv = _outputs(block, steps)
-    vn = (block * block).sum(0)
+    vn = pairwise_sum(block * block)
     for j in range(steps):
         # greedy pivot: the first largest remaining partial norm
         p = j + int(torch.argmax(vn[j:]))
@@ -82,7 +87,7 @@ def qrcp_panel_plain(block: torch.Tensor, steps: int):
                 t[:, [j, p]] = t[:, [p, j]]
             vn[[j, p]] = vn[[p, j]]
         # bring column j current: rows j: get reflectors 0..j-1
-        col = block[j:, j] - v[j:, :j] @ ft[:j, j]
+        col = block[j:, j] - pairwise_sum(v[j:, :j] * ft[:j, j][None, :], 1)
         # reflector j
         t, beta, denom = _reflector(col, col[0])
         vj = col / denom
@@ -92,9 +97,12 @@ def qrcp_panel_plain(block: torch.Tensor, steps: int):
         block[j + 1 :, j] = vj[1:]
         block[j, j] = beta
         # F[:, j] = tau·(Bᵀ·v − F·(Vᵀ·v))
-        ft[j] = t * (vj @ block[j:] - (vj @ v[j:, :j]) @ ft[:j])
+        vtv = pairwise_sum(vj[:, None] * v[j:, :j])
+        ft[j] = t * (pairwise_sum(vj[:, None] * block[j:])
+                     - pairwise_sum(vtv[:, None] * ft[:j]))
         # pivot row j of every trailing column, then the exact downdate
-        rowj = block[j, j + 1 :] - v[j, : j + 1] @ ft[: j + 1, j + 1 :]
+        rowj = block[j, j + 1 :] - pairwise_sum(
+            v[j, : j + 1, None] * ft[: j + 1, j + 1 :])
         block[j, j + 1 :] = rowj
         vn[j + 1 :] = torch.clamp(vn[j + 1 :] - rowj * rowj, min=0.0)
         vn[: j + 1] = 0.0
@@ -107,16 +115,19 @@ def _tree(terms: int, lanes: int) -> int:
     return max(min(terms, lanes) - 1, 0).bit_length()
 
 
-def _chain(grid: int, chunk: int, c: int, steps: int, lg: int) -> int:
+def _chain(grid: int, chunk: int, c: int, steps: int, lg: int,
+           flat: bool = False) -> int:
     """Longest chain of terms one element's value is summed through in a
     step: column j brought current (up to ``steps − 1`` terms over 2^lg
     lanes, the butterfly, the subtraction), the block's column sum
     (⌈chunk/g⌉ rows a row group, then the groups; g = 512 / min(c, 512),
-    at most 16), the cross-block sum (⌈G/32⌉ block partials a lane, the
-    butterfly), w (two operations) and the F recurrence (up to
-    ``steps − 1`` terms over 32 lanes, the butterfly, two operations)."""
+    at most 16, or 1 where the plan is ``flat``), the cross-block sum
+    (⌈G/32⌉ block partials a lane, the butterfly), w (two operations) and
+    the F recurrence (up to ``steps − 1`` terms over 32 lanes, the
+    butterfly, two operations)."""
     t = steps - 1
-    groups = min(_THREADS // min(max(c, 1), _THREADS), _GROUPS)
+    groups = 1 if flat else min(_THREADS // min(max(c, 1), _THREADS),
+                                _GROUPS)
     bring = -(-t // (1 << lg)) + _tree(t, 1 << lg) + 1
     rows = -(-chunk // groups) + min(groups, chunk) - 1
     cross = -(-grid // 32) + _tree(grid, 32)
@@ -125,7 +136,7 @@ def _chain(grid: int, chunk: int, c: int, steps: int, lg: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _plan(r: int, c: int, steps: int, dtype: torch.dtype, index: int) -> dict:
-    out = (_build.c_i64 * 10)()
+    out = (_build.c_i64 * 11)()
     fn = _build.function(_LIB, f"repro_qrcp_panel_plan_{_build.SUFFIX[dtype]}",
                          _PLAN_ARGS)
     with torch.cuda.device(index):
@@ -142,7 +153,8 @@ def _plan(r: int, c: int, steps: int, dtype: torch.dtype, index: int) -> dict:
     return {"route": "resident" if out[1] else "streamed", "grid": out[0],
             "chunk": out[2], "smem_bytes": out[3], "workspace_bytes": out[4],
             "threads": out[5], "owners": out[6], "v_rows_shared": bool(out[9]),
-            "chain": _chain(out[0], out[2], c, steps, out[7])}
+            "flat": bool(out[10]),
+            "chain": _chain(out[0], out[2], c, steps, out[7], bool(out[10]))}
 
 
 def plan(r: int, c: int, steps: int, dtype: torch.dtype, *,
@@ -152,7 +164,9 @@ def plan(r: int, c: int, steps: int, dtype: torch.dtype, *,
     ``threads`` (at most one an SM), rows a block (``chunk``), the blocks
     that own columns (``owners``), dynamic shared memory a block, whether
     a streamed block keeps V's rows in it (``v_rows_shared``), workspace
-    bytes, and ``chain``, the c of the 4·c·eps bound.  Builds the library;
+    bytes, ``flat`` (32-row blocks whose column sums are one chain each:
+    a block padded with zero rows and columns gives its real part the same
+    bits), and ``chain``, the c of the 4·c·eps bound.  Builds the library;
     cached per shape; a ValueError where the steps' shared memory cannot
     fit."""
     device = torch.device(device or "cuda")

@@ -11,9 +11,16 @@ update), ``PU`` (narrow update of a panel in flight), ``SWAP`` (row
 interchanges), ``EPI`` (the per-iteration epilogue of a two-sided DMF:
 Gauss–Jordan's update of the columns left of the panel and its commit),
 ``TILE`` (one task of the tile-DAG executor,
-:func:`repro_torch.core.tiles.run_dag`), ``drive`` (a whole driver call)
-and ``sweep`` (the tuner's lane; no layer emits it yet, as in the
-reference).
+:func:`repro_torch.core.tiles.run_dag`), ``drive`` (a whole driver call),
+``sweep`` (the tuner's lane; no layer emits it yet, as in the
+reference) and ``serve`` (one flushed batch of the solve server,
+:class:`repro_torch.serve.solver.SolveServer`).
+
+A tracer built with ``metrics=`` (a
+:class:`repro_torch.obs.metrics.Metrics` registry, e.g. a server's
+``metrics``) also records every finished span's duration in that
+registry's ``span.<cat>`` histogram, so engine traces and serve summaries
+share one snapshot.
 
 * **Disabled is free and bitwise-invisible.**  No tracer installed ⇒ every
   instrumented site runs its original call behind a single
@@ -34,7 +41,8 @@ from typing import Any, Callable, Dict, List, Optional
 __all__ = ["Span", "Tracer", "trace", "active", "CATEGORIES"]
 
 #: The span categories the engine and the drivers emit.
-CATEGORIES = ("PF", "TU", "PU", "SWAP", "EPI", "TILE", "drive", "sweep")
+CATEGORIES = ("PF", "TU", "PU", "SWAP", "EPI", "TILE", "drive", "sweep",
+              "serve")
 
 #: The currently installed tracer (None = tracing disabled, the default).
 _ACTIVE: Optional["Tracer"] = None
@@ -93,17 +101,22 @@ def _fence(value: Any) -> None:
 
 
 class Tracer:
-    """Span recorder with an injectable clock."""
+    """Span recorder with an injectable clock and an optional metrics
+    registry (``metrics``: every finished span also feeds its
+    ``span.<cat>`` duration histogram)."""
 
     def __init__(self, *, clock: Callable[[], float] = time.perf_counter,
-                 fence: bool = True) -> None:
+                 fence: bool = True, metrics=None) -> None:
         self.clock = clock
         self.fence = fence
+        self.metrics = metrics
         self.spans: List[Span] = []
 
     def add(self, span: Span) -> Span:
         """Record an externally built span (synthetic spans in tests)."""
         self.spans.append(span)
+        if self.metrics is not None:
+            self.metrics.histogram(f"span.{span.cat}").record(span.dur)
         return span
 
     def wrap(self, cat: str, name: str, thunk: Callable[[], Any], *,
@@ -123,12 +136,30 @@ class Tracer:
                       depth=depth, meta=dict(meta)))
         return out
 
+    @contextlib.contextmanager
+    def span(self, cat: str, name: str, *, step: int = -1, it: int = -1,
+             depth: int = 0, fence_on: Any = None, **meta):
+        """Context-manager form for block-shaped sites (serve flushes,
+        driver bodies).  ``fence_on`` optionally names the value whose
+        device work the end timestamp waits for (with ``fence=True``)."""
+        t0 = self.clock()
+        try:
+            yield
+        finally:
+            if self.fence and fence_on is not None:
+                _fence(fence_on)
+            self.add(Span(cat, name, t0, self.clock(), step=step, it=it,
+                          depth=depth, meta=dict(meta)))
+
     def by_cat(self, cat: str) -> List[Span]:
         return [s for s in self.spans if s.cat == cat]
 
     def total(self, cat: Optional[str] = None) -> float:
         return sum(s.dur for s in (self.spans if cat is None
                                    else self.by_cat(cat)))
+
+    def clear(self) -> None:
+        self.spans.clear()
 
 
 @contextlib.contextmanager

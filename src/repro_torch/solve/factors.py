@@ -24,6 +24,16 @@ carries its lower factor ``l`` the same way, :class:`LDLTFactors` its
 ``(packed, taus)``, :class:`QRCPFactors` its ``(packed, taus, jpvt)``
 and :class:`HessenbergFactors` its ``(packed, taus)``.  So a system
 factored by one package can be solved, or reduced further, by the other.
+
+Batches.  The reference gets a batch of factored systems by stacking its
+factor pytrees (a leading batch axis on every leaf).  Here
+:func:`stack_factors` makes one factor object whose tensors carry that
+axis (``lu (B, n, n)``, ``ipiv``/``perm (B, n)``; ``l (B, n, n)``) and
+:func:`factors_at` takes system ``i`` back out;
+:func:`repro_torch.solve.batched.solve_batched` solves such a batch.
+``LUFactors.from_numpy`` and ``CholeskyFactors.from_numpy`` accept the
+reference's batched arrays as they are, and ``to_numpy`` returns them
+batched, so a batch factored by either package is solved by the other.
 """
 from __future__ import annotations
 
@@ -44,12 +54,16 @@ from repro_torch.device import resolve_device, working_copy
 from repro_torch.solve.triangular import lu_solve_packed, trsm_blocked
 
 __all__ = ["LUFactors", "CholeskyFactors", "LDLTFactors", "QRFactors",
-           "QRCPFactors", "HessenbergFactors", "TiledQRFactors"]
+           "QRCPFactors", "HessenbergFactors", "TiledQRFactors",
+           "stack_factors", "factors_at", "batch_size"]
 
 
 def _rhs(b, like: torch.Tensor, n: int) -> tuple[torch.Tensor, bool]:
     """``b`` as a matrix on ``like``'s device and dtype, and whether it was
     a vector."""
+    if like.dim() != 2:
+        raise ValueError("these factors hold a batch of systems: solve them "
+                         "with solve_batched, or take one with factors_at")
     b = torch.as_tensor(b).to(device=like.device, dtype=like.dtype)
     was_vec = b.dim() == 1
     if was_vec:
@@ -77,15 +91,19 @@ class LUFactors:
     def from_packed(cls, lu: torch.Tensor, ipiv: torch.Tensor, *,
                     block: BlockSpec = 128,
                     backend: Union[str, Backend] = "cuda") -> "LUFactors":
-        return cls(lu=lu, ipiv=ipiv,
-                   perm=permutation_from_pivots(ipiv, lu.shape[0]),
-                   block=block, backend=resolve_backend(backend))
+        """Factors from ``lu`` and ``ipiv``, one system or a batch
+        (``lu (B, n, n)``, ``ipiv (B, n)``)."""
+        n = lu.shape[-1]
+        perm = permutation_from_pivots(ipiv, n) if lu.dim() == 2 else \
+            torch.stack([permutation_from_pivots(p, n) for p in ipiv])
+        return cls(lu=lu, ipiv=ipiv, perm=perm, block=block,
+                   backend=resolve_backend(backend))
 
     @classmethod
     def from_numpy(cls, lu, ipiv, *, block: BlockSpec = 128, device=None,
                    backend: Union[str, Backend] = "cuda") -> "LUFactors":
-        """Factors from NumPy arrays (e.g. the reference's), on ``device``
-        (None = the GPU)."""
+        """Factors from NumPy arrays (e.g. the reference's, batched or
+        not), on ``device`` (None = the GPU)."""
         dev = resolve_device(device)
         return cls.from_packed(working_copy(lu, dev),
                                working_copy(np.asarray(ipiv), dev,
@@ -99,7 +117,7 @@ class LUFactors:
 
     @property
     def n(self) -> int:
-        return self.lu.shape[0]
+        return self.lu.shape[-1]
 
     def solve(self, b, *, trans: bool = False) -> torch.Tensor:
         """Solve ``A·X = B`` (or ``Aᵀ·X = B``); ``b`` may be a vector, a
@@ -145,8 +163,8 @@ class CholeskyFactors:
     @classmethod
     def from_numpy(cls, l, *, block: BlockSpec = 128, device=None,
                    backend: Union[str, Backend] = "cuda") -> "CholeskyFactors":
-        """Factors from a NumPy array (e.g. the reference's ``l``), on
-        ``device`` (None = the GPU)."""
+        """Factors from a NumPy array (e.g. the reference's ``l``, batched
+        or not), on ``device`` (None = the GPU)."""
         return cls(l=working_copy(l, resolve_device(device)), block=block,
                    backend=resolve_backend(backend))
 
@@ -156,7 +174,7 @@ class CholeskyFactors:
 
     @property
     def n(self) -> int:
-        return self.l.shape[0]
+        return self.l.shape[-1]
 
     def solve(self, b, *, trans: bool = False) -> torch.Tensor:
         """Solve ``A·X = B`` (A is symmetric, so ``trans`` changes nothing):
@@ -502,3 +520,48 @@ class HessenbergFactors:
         device that holds it; raises where the installed PyTorch has no
         eigenvalue solver for that device."""
         return torch.linalg.eigvals(self.h)
+
+
+def _tensor_fields(f) -> list[str]:
+    """Names of the tensor fields of a factor object (the ones a batch
+    stacks); raises for a factor type with none."""
+    names = [fl.name for fl in dataclasses.fields(f)
+             if isinstance(getattr(f, fl.name), torch.Tensor)]
+    if not names:
+        raise TypeError(f"{type(f).__name__} holds no tensors to batch")
+    return names
+
+
+def stack_factors(items) -> "LUFactors | CholeskyFactors":
+    """One factor object whose tensors carry a leading batch axis, from
+    factor objects of one type, block and backend (slot ``i`` = ``items[i]``;
+    the tensors are copied once)."""
+    items = list(items)
+    if not items:
+        raise ValueError("stack_factors needs at least one factor object")
+    first = items[0]
+    for f in items[1:]:
+        if type(f) is not type(first) or f.block != first.block \
+                or f.backend is not first.backend:
+            raise ValueError("stack_factors: every item must share the "
+                             "factor type, block and backend")
+    return dataclasses.replace(first, **{
+        name: torch.stack([getattr(f, name) for f in items])
+        for name in _tensor_fields(first)})
+
+
+def factors_at(batched, i: int):
+    """System ``i`` of a batched factor object (views, no copy)."""
+    return dataclasses.replace(batched, **{
+        name: getattr(batched, name)[i] for name in _tensor_fields(batched)})
+
+
+def batch_size(batched) -> int:
+    """The number of systems of a batched factor object; raises for one
+    that holds a single system."""
+    lead = getattr(batched, _tensor_fields(batched)[0])
+    if lead.dim() != 3:
+        raise ValueError(f"{type(batched).__name__} holds one system, not a "
+                         f"batch (its {tuple(lead.shape)} factor has no batch "
+                         f"axis)")
+    return lead.shape[0]

@@ -115,3 +115,77 @@ def test_chrome_trace_and_timeline_equal_the_reference(tmp_path):
         assert export.render_timeline(mine, width=width) == \
             ref_export.render_timeline(ref, width=width)
     assert export.render_timeline([]) == ref_export.render_timeline([])
+
+
+def _ticks():
+    """A fake clock: 0, 1, 2, ... one tick a read."""
+    t = iter(range(1000))
+    return lambda: float(next(t))
+
+
+def test_span_clear_and_metrics_as_the_reference():
+    """``span()`` (with and without a value to fence), ``clear()`` and the
+    ``metrics=`` registry give the reference's spans and histograms on the
+    same fake clock."""
+    from repro.obs.metrics import Metrics as RefMetrics
+    from repro_torch.obs.metrics import Metrics
+
+    assert "serve" in tracer.CATEGORIES
+    got = []
+    for mod, reg in ((tracer, Metrics()), (ref_tracer, RefMetrics())):
+        tr = mod.Tracer(clock=_ticks(), metrics=reg)
+        with tr.span("serve", "flush:gesv[64x64x4]", batch=3, cached=False):
+            pass
+        with tr.span("serve", "flush:posv[32x32x1]+cache", fence_on=[1.0],
+                     batch=1, cached=True):
+            pass
+        tr.wrap("drive", "gesv[64x64]", lambda: 2.0, driver="gesv")
+        with pytest.raises(RuntimeError):
+            with tr.span("serve", "failing"):
+                raise RuntimeError("the span still closes")
+        spans = [(s.cat, s.name, s.t0, s.t1, s.meta) for s in tr.spans]
+        snap = reg.snapshot()
+        assert tr.total("serve") == 3.0 and len(tr.by_cat("serve")) == 3
+        tr.clear()
+        assert tr.spans == [] and tr.total() == 0.0
+        got.append((spans, snap))
+    assert got[0] == got[1]
+    assert got[0][1]["hist.span.serve.count"] == 3
+    assert got[0][1]["hist.span.drive.count"] == 1
+
+
+def test_serve_flush_span_lands_in_the_servers_registry():
+    """The solve server's flush is one `serve` span, recorded in the
+    server's own registry as ``span.serve`` when the tracer is built with
+    ``metrics=server.metrics``; with no tracer installed no span is
+    recorded."""
+    import numpy as np
+
+    from repro_torch.serve import ServerConfig, SolveServer
+
+    srv = SolveServer(ServerConfig(max_batch=4, device="cpu"))
+    rng = np.random.default_rng(0)
+    for n in (20, 24):
+        srv.submit("gesv", rng.standard_normal((n, n)) + n * np.eye(n),
+                   rng.standard_normal((n, 1)))
+    g = rng.standard_normal((16, 16))
+    srv.submit("posv", g @ g.T + 16 * np.eye(16), np.ones((16, 1)),
+               cache=True)
+    with tracer.trace(tracer.Tracer(metrics=srv.metrics)) as tr:
+        assert srv.drain() == 3
+    flush, cached = tr.by_cat("serve")
+    assert flush.name == "flush:gesv[32x32x1]"
+    assert flush.meta == {"batch": 2, "cached": False}
+    assert cached.name == "flush:posv[32x32x1]+cache"
+    assert cached.meta == {"batch": 1, "cached": True}
+    inner = [s for s in tr.by_cat("drive")
+             if flush.t0 <= s.t0 and s.t1 <= flush.t1]
+    assert len(inner) == 4               # gesv + lu_factor, twice
+    assert len(tr.by_cat("drive")) == 5  # and the cached cholesky_factor
+    snap = srv.snapshot()
+    assert snap["hist.span.serve.count"] == 2.0
+    assert snap["hist.span.serve.mean"] == pytest.approx(
+        (flush.dur + cached.dur) / 2)
+    srv.submit("gesv", np.eye(3), np.ones((3, 1)))
+    srv.drain()
+    assert srv.snapshot()["hist.span.serve.count"] == 2.0

@@ -16,6 +16,9 @@ turns on one card:
   the PyTorch-op panel (``core.cholesky.cholesky_panel``: PyTorch ops,
   then the right TRSM kernel) and the ``cholesky_panel`` kernel where the
   tree has it, 3 calls each;
+* ``qr``: ``qr_panel`` on the ``gels`` path's first panel (16384 x 128,
+  rows resident in shared memory) and on a 65536 x 128 panel (streamed),
+  and its ``larft`` entry on a 16384 x 128 V;
 * ``qrcp``: ``qrcp_panel`` on a ``qrcp_local`` window (16384 x 128) and on
   the global path's first block (16384 x 4096), 128 steps each;
 * ``hessenberg``: ``hessenberg_panel`` on ``gehrd``'s first panel at
@@ -31,6 +34,7 @@ turns on one card:
     python3 tools/panel_timing.py --src OTHER/src       # another checkout
     python3 tools/panel_timing.py --only cholesky
     python3 tools/panel_timing.py --only wkv
+    python3 tools/panel_timing.py --only qr,qrcp
 
 The panel kernels work in place, so each run starts from a fresh copy of
 its operands and the copy's own time is subtracted (``wkv6_fused`` does
@@ -53,6 +57,7 @@ import torch
 
 N, BLOCK, SEED = 8192, 128, 0
 QR_M, QR_N, HESS_SMALL = 16384, 4096, 2048
+QR_STREAMED_M = 65536
 #: wkv: (key, batch, tokens, from a state, repetitions); 64 heads of 64
 WKV_SHAPES = (("serve", 4, 1024, False, 20),
               ("prefill_32k", 1, 32768, False, 5),
@@ -97,15 +102,16 @@ def main() -> int:
                                          / "src"))
     ap.add_argument("--only", default="lu,cholesky,qrcp,hessenberg,wkv",
                     help="comma-separated groups: lu, cholesky, "
-                         "cholesky_wide, qrcp, hessenberg, wkv")
+                         "cholesky_wide, qr, qrcp, hessenberg, wkv")
     args = ap.parse_args()
     groups = set(args.only.split(","))
     if not torch.cuda.is_available():
         print("panel_timing: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, args.src)
+    from repro_torch.core.qr import unpack_v
     from repro_torch.kernels import _build, panel_hessenberg, panel_lu, \
-        panel_qrcp
+        panel_qr, panel_qrcp
     from repro_torch.core.cholesky import cholesky_panel as op_panel
     from repro_torch.kernels import fused_panel_update as fpu
 
@@ -173,6 +179,15 @@ def main() -> int:
                 row[f"cholesky_panel_b{bw}"] = in_place(
                     lambda p: fpu.cholesky_panel(p, bw), first, 3)
             del first
+        if "qr" in groups:
+            for key, m in (("qr_panel", QR_M),
+                           ("qr_panel_streamed", QR_STREAMED_M)):
+                row[key] = in_place(panel_qr.qr_panel, randn(m, BLOCK), 20)
+            v = randn(QR_M, BLOCK)
+            _, tau, _ = panel_qr.qr_panel(v)
+            v = unpack_v(v, BLOCK)
+            row["larft"] = both(lambda: panel_qr.larft(v, tau), lambda: None)
+            del v, tau
         if "qrcp" in groups:
             for key, cols, reps in (("qrcp_panel_window", BLOCK, 20),
                                     ("qrcp_panel_global", QR_N, 10)):
