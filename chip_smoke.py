@@ -210,6 +210,25 @@
     per-expert normal equations (128 requests, f64, block 128). Each
     prints req/s, p50/p99, batches, buckets (``compiles``), hit rate,
     launches by kernel and the card's name and power limit.
+15c. ``mesh``: the mesh engine (``repro_torch.core.distributed``) in worlds
+    of ranks on the one card, started by ``repro_torch.launch.mesh.spawn``
+    (``MESH_WORLDS``): one rank under NCCL (a real communicator of one), and
+    four ranks under gloo on CUDA tensors (collectives staged through host
+    tensors) with a ``(4,)`` mesh (nd 4) and a ``(2, 2)`` mesh with
+    ``Layout(axis="model")`` (nd 2).  ``lu_factor``/``gesv`` and
+    ``cholesky_factor``/``posv`` at n = 8192, b = 128 and
+    ``qr_factor``/``gels`` at 16384 x 4096, float64 and float32, under
+    ``mtb``/``la``/``la2``: factors (pivots included) and solutions bitwise
+    the single-device port's at the same schedule (rank 0 computes those in
+    the same world), the same residual gates as phases 4-6; rank 0's wall
+    ms beside the single-device ``mtb``'s, the transport, and from one
+    traced float64 ``gesv`` a mesh and variant the BCAST count, bytes and
+    seconds and, under ``la2``, ``report.overlap``'s ``bcast_hidden_frac``;
+    launches by kernel on rank 0.  In the parent, the GEMM and TRSM kernels
+    held column-decomposable, bitwise, at the mesh's local widths.
+15d. ``qr_bucket_tall``: ``gels`` 4324 x 100 (4 right-hand sides, seed 88,
+    block 128) in its 8192 x 128 bucket, bitwise the raw shape's answer,
+    with both QR panel plans.
 
 Launch counts are set to 0 just before each path and read just after it;
 each kernel of a path must have launched in it (``flash_attention`` and
@@ -312,6 +331,155 @@ SERVER_MIX_B = tuple((dmf, m, n, (1, 16), 1) for dmf, m, n in (
 MIX_A_REQUESTS, MIX_B_REQUESTS = 512, 128
 CACHE_MATRICES, CACHE_ROUNDS = 64, 4   # mix A's factor-once/solve-many round
 NAIVE_CALLS = 200                 # the one-at-a-time gesv baseline at n 48
+#: 15c: the mesh worlds, (ranks, meshes: (name, shape, dimension names,
+#: the Layout's axis or None)); the backend follows from the layout
+#: (``launch.mesh.world_backend``: NCCL for one rank on the card, gloo for
+#: four ranks sharing it)
+MESH_WORLDS = ((1, (("d1", (1,), ("model",), None),)),
+               (4, (("d4", (4,), ("model",), None),
+                    ("d2", (2, 2), ("data", "model"), "model"))))
+MESH_VARIANTS = ("mtb", "la", "la2")
+#: 15d: the tall gels bucket of the QR panel's dealt chunks
+TALL_GELS = (4324, 100, 4, 88)    # m, n, right-hand sides, seed
+
+
+def _mesh_job(rank, cfg):
+    """One rank of a 15c mesh world: every rank runs every mesh call; rank
+    0 also runs the single-device port at the same schedule and compares.
+    Returns rank 0's records and its launches on the mesh calls."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core import distributed as D
+    from repro_torch.core.backend import no_tf32
+    from repro_torch.kernels import ops
+    from repro_torch.obs import report, tracer
+    from repro_torch.solve import cholesky_factor, lu_factor, qr_factor
+
+    no_tf32()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n, b, nrhs = cfg["n"], cfg["block"], cfg["nrhs"]
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def inputs(driver, dtype):
+        # the same on every rank: one seeded generator on the card and
+        # elementwise ops (a symmetric, diagonally dominant posv input)
+        gen = torch.Generator(device=dev).manual_seed(
+            cfg["seed"] + ("gesv", "posv", "gels").index(driver))
+        shape = cfg["gels"] if driver == "gels" else (n, n)
+        a = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+        if driver == "posv":
+            a = (a + a.mT) / 2
+            a.diagonal().add_(float(n))
+        rhs = torch.randn(shape[0], nrhs, generator=gen, device=dev,
+                          dtype=dtype)
+        return a, rhs
+
+    factor = {"gesv": (lu_factor, ("lu", "ipiv", "perm")),
+              "posv": (cholesky_factor, ("l",)),
+              "gels": (qr_factor, ("packed", "taus"))}
+
+    def gate(driver, a, x, rhs, dtype):
+        a64, x64, b64 = a.double(), x.double(), rhs.double()
+        if driver == "gels":       # LAPACK's least-squares ratio
+            num = float((a64.mT @ (b64 - a64 @ x64)).norm())
+            return num / (max(*a.shape, nrhs) * torch.finfo(dtype).eps
+                          * float(a64.norm()) * float(b64.norm()))
+        num = float((a64 @ x64 - b64).norm())
+        return num / (a.shape[0] * torch.finfo(dtype).eps
+                      * float(a64.norm()) * float(x64.norm()))
+
+    meshes = [(name, init_device_mesh("cuda", shape, mesh_dim_names=names),
+               None if axis is None else D.Layout(axis=axis))
+              for name, shape, names, axis in cfg["meshes"]]
+    records, launches = [], {}
+    # warm-up, not timed or counted: the kernels' libraries and plans, and
+    # each mesh's communicators (NCCL builds its own at first use)
+    for dtype in (torch.float64, torch.float32):
+        for driver, (fn, _) in factor.items():
+            g = torch.randn(512 if driver != "gels" else 1024, 512,
+                            generator=torch.Generator(device=dev).manual_seed(1),
+                            device=dev, dtype=dtype)
+            if driver == "posv":
+                g = g + g.mT + 512 * torch.eye(512, device=dev, dtype=dtype)
+            fn(g, b, variant="la")
+            for _, mesh, layout in meshes:
+                fn(g, b, variant="la", mesh=mesh, layout=layout)
+    sync()
+    ops.reset_launches()
+
+    def bank():
+        for k, v in ops.launches().items():
+            launches[k] = launches.get(k, 0) + v
+        ops.reset_launches()
+
+    for dtype in (torch.float64, torch.float32):
+        for driver in ("gesv", "posv", "gels"):
+            a, rhs = inputs(driver, dtype)
+            fn, fields = factor[driver]
+            for variant in MESH_VARIANTS:
+                single = None
+                if rank == 0:
+                    sync()
+                    t0 = time.perf_counter()
+                    single = fn(a, b, variant=variant)
+                    xs = single.solve(rhs)
+                    sync()
+                    single_ms = (time.perf_counter() - t0) * 1e3
+                    if variant == "mtb":
+                        mtb_ms = single_ms
+                for mname, mesh, layout in meshes:
+                    ops.reset_launches()
+                    sync()
+                    t0 = time.perf_counter()
+                    fac = fn(a, b, variant=variant, mesh=mesh, layout=layout)
+                    x = fac.solve(rhs)
+                    sync()
+                    ms = (time.perf_counter() - t0) * 1e3
+                    bank()
+                    if rank != 0:
+                        continue
+                    bits = all(torch.equal(getattr(fac, f), getattr(single, f))
+                               for f in fields) and torch.equal(x, xs)
+                    check(bits, f"mesh {mname} {driver} {variant} {dtype}: "
+                          "not bitwise the single-device port")
+                    res = gate(driver, a, x, rhs, dtype)
+                    check(res < RESIDUAL_LIMIT, f"mesh {mname} {driver} "
+                          f"{variant} {dtype}: residual {res}")
+                    axis = D.resolve_axis(mesh, layout)
+                    records.append({
+                        "mesh": mname, "mesh_shape": list(mesh.shape),
+                        "nd": D.axis_size(mesh, axis), "driver": driver,
+                        "dtype": str(dtype), "variant": variant,
+                        "shape": list(a.shape), "block": b,
+                        "transport": D.transport(mesh, axis, dev).name,
+                        "wall_ms": ms, "single_ms": single_ms,
+                        "single_mtb_ms": mtb_ms, "residual": res,
+                        "bitwise_equal_to_single_device": True})
+                del single
+            del a, rhs
+    # one traced float64 gesv a mesh and variant: the BCAST figures
+    a, rhs = inputs("gesv", torch.float64)
+    traces = []
+    for mname, mesh, layout in meshes:
+        for variant in MESH_VARIANTS:
+            with tracer.trace() as tr:
+                lu_factor(a, b, variant=variant, mesh=mesh, layout=layout)
+            bank()
+            bc = tr.by_cat("BCAST")
+            rep = report.overlap(tr.spans)
+            traces.append({
+                "mesh": mname, "variant": variant,
+                "nd": D.axis_size(mesh, D.resolve_axis(mesh, layout)),
+                "bcast_count": len(bc),
+                "bcast_bytes": sum(sp.meta["bytes"] for sp in bc),
+                "bcast_s": rep["bcast_s"],
+                "bcast_hidden_frac": rep["bcast_hidden_frac"],
+                "pf_s": rep["panel_s"], "update_s": rep["update_s"]})
+    return {"rank": rank, "records": records, "traces": traces,
+            "launches": launches}
 
 
 def _as_tuple(x):
@@ -932,7 +1100,7 @@ def main() -> int:
             gram = float(mq) * BLOCK * (BLOCK - 1) + BLOCK ** 3 / 3.0
             row = dict(
                 shape=[mq, BLOCK], route=pl["route"], grid=pl["grid"],
-                rows_per_block=pl["chunk"], chain=pl["chain"],
+                rows_per_block=pl["rows"], chain=pl["chain"],
                 deterministic=True, t_bitwise_larft=True,
                 rel_err=max(errs.values()), rel_errs=errs,
                 max_abs_err=compare(qk, qp)[1],
@@ -1010,7 +1178,7 @@ def main() -> int:
                 for j in range(BLOCK))
             row = dict(
                 shape=[rows, cols, BLOCK], route=pl["route"], grid=pl["grid"],
-                rows_per_block=pl["chunk"], owners=pl["owners"],
+                rows_per_block=pl["rows"], owners=pl["owners"],
                 chain=pl["chain"], pivots_equal=True, deterministic=True,
                 rel_err=max(errs.values()), rel_errs=errs, max_abs_err=max_abs,
                 tol=tolerance(dtype, pl["chain"]),
@@ -3055,6 +3223,108 @@ def main() -> int:
                  "cholesky_panel", "qr_panel", "larft", "qrcp_panel"):
         check(new_paths["solve_server"].get(name, 0) > 0,
               f"kernel {name} was not launched on the solve server's path")
+
+    # ---- 15c. the mesh engine: worlds of ranks on the one card ------------
+    from repro_torch.launch import mesh as launch_mesh
+
+    mesh_t0 = time.perf_counter()
+    # the GEMM and TRSM kernels column-decomposable at the mesh's local
+    # widths: a rank's run of blocks (nd 4 and 2) and one block (eq)
+    decomp = {}
+    for dtype in (torch.float64, torch.float32):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+        ka = torch.randn(N - BLOCK, BLOCK, generator=gen, device=dev,
+                         dtype=dtype)
+        kb = torch.randn(BLOCK, N, generator=gen, device=dev, dtype=dtype)
+        kc = torch.randn(N - BLOCK, N, generator=gen, device=dev, dtype=dtype)
+        kl = torch.randn(BLOCK, BLOCK, generator=gen, device=dev,
+                         dtype=dtype).tril_()
+        kl.diagonal().add_(float(BLOCK))
+        wide = blis_gemm.gemm_accum(kc, ka, kb, alpha=-1.0)
+        wide_t = trsm.trsm(kl, kb, lower=True, unit_diagonal=True)
+        wide_u = trsm.trsm(kl.mT.contiguous(), kb, lower=False)
+        ok = True
+        for c0, c1 in ((0, N // 4), (N // 4, N // 2), (N // 2, N),
+                       (BLOCK, 2 * BLOCK), (N - BLOCK, N)):
+            ok &= torch.equal(blis_gemm.gemm_accum(
+                kc[:, c0:c1], ka, kb[:, c0:c1], alpha=-1.0), wide[:, c0:c1])
+            ok &= torch.equal(trsm.trsm(kl, kb[:, c0:c1], lower=True,
+                                        unit_diagonal=True), wide_t[:, c0:c1])
+            ok &= torch.equal(trsm.trsm(kl.mT.contiguous(), kb[:, c0:c1],
+                                        lower=False), wide_u[:, c0:c1])
+        check(ok, f"mesh {dtype}: GEMM/TRSM not column-decomposable")
+        decomp[str(dtype)] = True
+        del ka, kb, kc, kl, wide, wide_t, wide_u
+    ops.reset_launches()
+    emit({"phase": "mesh_column_decomposable", "widths": [
+        N // 4, N // 2, BLOCK], "bitwise": decomp})
+    torch.cuda.empty_cache()
+    new_paths["mesh"] = {}
+    mesh_cfg = {"n": N, "block": BLOCK, "nrhs": NRHS, "seed": SEED + 40,
+                "gels": (QR_M, QR_N)}
+    for nprocs, meshes in MESH_WORLDS:
+        t0 = time.perf_counter()
+        backend = launch_mesh.world_backend("cuda", nprocs)
+        out = launch_mesh.spawn(_mesh_job, nprocs,
+                                ({**mesh_cfg, "meshes": meshes},),
+                                device_type="cuda", timeout=900)
+        world_s = time.perf_counter() - t0
+        r0 = out[0]
+        for k, v in r0["launches"].items():
+            new_paths["mesh"][k] = new_paths["mesh"].get(k, 0) + v
+        for rec in r0["records"]:
+            emit({"phase": "mesh", "world": nprocs, "backend": backend,
+                  **rec})
+        emit({"phase": "mesh_world", "world": nprocs, "backend": backend,
+              "meshes": [m_[0] for m_ in meshes], "seconds": world_s,
+              "bcast": r0["traces"],
+              "launches_rank0": {k: v for k, v in r0["launches"].items()
+                                 if v}})
+        for tr_ in r0["traces"]:
+            panels = -(-N // BLOCK)
+            check(tr_["bcast_count"] == panels
+                  and tr_["bcast_bytes"] == panels * (tr_["nd"] - 1) * N
+                  * BLOCK * 8, f"mesh {tr_['mesh']} {tr_['variant']}: "
+                  f"{tr_['bcast_count']} BCAST spans of "
+                  f"{tr_['bcast_bytes']} bytes")
+    for name in ("gemm_accum", "trsm", "lu_panel", "cholesky_panel",
+                 "qr_panel", "larft"):
+        check(new_paths["mesh"].get(name, 0) > 0,
+              f"kernel {name} was not launched on the mesh path")
+    emit({"phase": "mesh_seconds", "seconds": time.perf_counter() - mesh_t0})
+
+    # ---- 15d. a gels bucket taller than 32 rows an SM, bitwise raw --------
+    from repro_torch.serve import bucketing
+
+    tall = {}
+    ops.reset_launches()
+    for dtype in (torch.float64, torch.float32):
+        tm, tn, tr_rhs, tseed = TALL_GELS
+        gen = torch.Generator(device=dev).manual_seed(tseed)
+        a = torch.randn(tm, tn, generator=gen, device=dev, dtype=dtype)
+        gen = torch.Generator(device=dev).manual_seed(tseed + 1)
+        b = torch.randn(tm, tr_rhs, generator=gen, device=dev, dtype=dtype)
+        key = bucketing.shape_class("gels", tm, tn, tr_rhs, dtype)
+        ap, bp = bucketing.pad_request("gels", a, b, key)
+        raw = gels(a, b, BLOCK)
+        padded = bucketing.extract(gels(ap, bp, BLOCK), tn, tr_rhs)
+        check(torch.equal(raw, padded), f"qr_bucket_tall {dtype}: the "
+              f"{key.m} x {key.n} bucket is not bitwise the raw "
+              f"{tm} x {tn} answer")
+        ratio = ls_ratio(a, raw, b, dtype)
+        check(ratio < RESIDUAL_LIMIT, f"qr_bucket_tall {dtype}: ratio {ratio}")
+        plans = {f"{m_}x{n_}": {k: panel_qr.plan(m_, n_, dtype)[k] for k in
+                                ("route", "grid", "chunk", "rows", "chain")}
+                 for m_, n_ in ((tm, tn), (key.m, key.n))}
+        check(plans[f"{key.m}x{key.n}"]["rows"] > 32,
+              "qr_bucket_tall: the bucket is not taller than 32 rows an SM")
+        tall[str(dtype)] = {"bucket": [key.m, key.n], "plans": plans,
+                            "ls_ratio": ratio, "bitwise_equal_to_raw": True}
+        del a, b, ap, bp, raw, padded
+    bank(new_paths.setdefault("qr_bucket_tall", {}))
+    emit({"phase": "qr_bucket_tall", "m": TALL_GELS[0], "n": TALL_GELS[1],
+          "nrhs": TALL_GELS[2], "seed": TALL_GELS[3], "block": BLOCK,
+          **tall})
 
     # ---- 16. report --------------------------------------------------------
     sources = {"gemm_accum": "gemm.cu", "trsm": "trsm.cu",

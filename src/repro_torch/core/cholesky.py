@@ -145,27 +145,29 @@ CHOLESKY_OPS = StepOps(
 # ``device`` (None = the GPU) and returns the lower factor L.
 # ---------------------------------------------------------------------------
 def cholesky_blocked(a, b: BlockSpec = 128, *, backend="cuda",
-                     panel_fn: Optional[Callable] = None, device=None):
+                     panel_fn: Optional[Callable] = None, device=None,
+                     mesh=None, layout=None):
     """Right-looking blocked Cholesky (MTB)."""
     return pipeline.factorize(CHOLESKY_OPS, a, b, variant="mtb",
                               backend=backend, panel_fn=panel_fn,
-                              device=device)
+                              device=device, mesh=mesh, layout=layout)
 
 
 def cholesky_tiled(a, b: BlockSpec = 128, *, backend="cuda",
-                   panel_fn: Optional[Callable] = None, device=None):
+                   panel_fn: Optional[Callable] = None, device=None,
+                   mesh=None, layout=None):
     """Blocked Cholesky with the trailing update fragmented into b×b tile
     tasks (RTM)."""
     return pipeline.factorize(CHOLESKY_OPS, a, b, variant="rtm",
                               backend=backend, panel_fn=panel_fn,
-                              device=device)
+                              device=device, mesh=mesh, layout=layout)
 
 
 @pipeline.mark_depth_capable
 def cholesky_lookahead(a, b: BlockSpec = 128, *, backend="cuda",
                        panel_fn: Optional[Callable] = None,
                        fused_pu: Optional[Callable] = None, depth: int = 1,
-                       device=None):
+                       device=None, mesh=None, layout=None):
     """Cholesky with static look-ahead; ``depth`` panels in flight.
 
     ``fused_pu``: a fused panel update ``(lrow, l21, panel) -> panel`` that
@@ -174,4 +176,5 @@ def cholesky_lookahead(a, b: BlockSpec = 128, *, backend="cuda",
     """
     return pipeline.factorize(CHOLESKY_OPS, a, b, variant="la", depth=depth,
                               backend=backend, panel_fn=panel_fn,
-                              fused_pu=fused_pu, device=device)
+                              fused_pu=fused_pu, device=device, mesh=mesh,
+                              layout=layout)

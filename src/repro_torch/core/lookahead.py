@@ -204,7 +204,10 @@ def _make_tuned(dmf: str, table: Dict[str, Callable]) -> Callable:
         backend and device; a cold cache runs ``la`` (``mtb`` where there
         is none) at the caller's block (or 128), so ``"tuned"`` always
         runs.  The key names the backend and the device type, so a winner
-        measured on the CPU never serves a call on the GPU.
+        measured on the CPU never serves a call on the GPU.  With
+        ``mesh=`` the winner runs on the caller's mesh; a mesh winner
+        (``mesh_shape``) whose cycle has another size than the caller's
+        mesh is refused, and without a mesh it runs on one device.
         """
         from repro_torch import tune
 
@@ -220,6 +223,18 @@ def _make_tuned(dmf: str, table: Dict[str, Callable]) -> Callable:
                 f"{cfg.kernel_blocks}: the port's GEMM has no kernel-blocking "
                 f"axis (it picks its tile from compiled instances), so the "
                 f"winner cannot be reproduced; re-run repro_torch.tune.search")
+        if cfg.mesh_shape is not None and kw.get("mesh") is not None:
+            from repro_torch.core import distributed as _dist
+
+            mesh = kw["mesh"]
+            _dist.check_mesh(mesh)
+            nd = _dist.axis_size(mesh, _dist.resolve_axis(
+                mesh, kw.get("layout")))
+            if tuple(cfg.mesh_shape) != (nd,):
+                raise ValueError(
+                    f"tuned {dmf!r} entry was measured on a mesh of shape "
+                    f"{tuple(cfg.mesh_shape)}, the caller's cycle has {nd} "
+                    f"ranks; re-run repro_torch.tune.search on this mesh")
         # the block is positional: band reduction names it w, not b
         return get_variant(dmf, cfg.variant)(a, cfg.schedule, **kw)
 

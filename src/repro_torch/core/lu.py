@@ -220,25 +220,29 @@ LU_OPS = StepOps(
 # ``device`` (None = the GPU) and returns (packed LU, global int32 ipiv).
 # ---------------------------------------------------------------------------
 def lu_blocked(a, b: BlockSpec = 128, *, backend="cuda",
-               panel_fn: Optional[Callable] = None, device=None):
+               panel_fn: Optional[Callable] = None, device=None, mesh=None,
+               layout=None):
     """Right-looking blocked LUpp (MTB)."""
     return pipeline.factorize(LU_OPS, a, b, variant="mtb", backend=backend,
-                              panel_fn=panel_fn, device=device)
+                              panel_fn=panel_fn, device=device, mesh=mesh,
+                              layout=layout)
 
 
 def lu_tiled(a, b: BlockSpec = 128, *, backend="cuda",
-             panel_fn: Optional[Callable] = None, device=None):
+             panel_fn: Optional[Callable] = None, device=None, mesh=None,
+             layout=None):
     """Blocked LUpp with the trailing update fragmented into per-tile
     tasks (RTM, paper Listing 4)."""
     return pipeline.factorize(LU_OPS, a, b, variant="rtm", backend=backend,
-                              panel_fn=panel_fn, device=device)
+                              panel_fn=panel_fn, device=device, mesh=mesh,
+                              layout=layout)
 
 
 @pipeline.mark_depth_capable
 def lu_lookahead(a, b: BlockSpec = 128, *, backend="cuda",
                  panel_fn: Optional[Callable] = None,
                  fused_pu: Optional[Callable] = None, depth: int = 1,
-                 device=None):
+                 device=None, mesh=None, layout=None):
     """LUpp with static look-ahead; ``depth`` panels in flight.
 
     The pivots of PF(k+1) are applied at the start of iteration k+1 (row
@@ -249,4 +253,5 @@ def lu_lookahead(a, b: BlockSpec = 128, *, backend="cuda",
     """
     return pipeline.factorize(LU_OPS, a, b, variant="la", depth=depth,
                               backend=backend, panel_fn=panel_fn,
-                              fused_pu=fused_pu, device=device)
+                              fused_pu=fused_pu, device=device, mesh=mesh,
+                              layout=layout)

@@ -38,7 +38,10 @@ loop runs after an iteration's updates, the last panel's included; under
 ``mtb`` a DMF with ``update_all`` issues its whole update as that one
 bulk op instead.
 
-Not ported yet: the ``mesh=`` engine.
+Mesh.  ``mesh=`` (a ``torch.distributed.device_mesh.DeviceMesh``) lowers
+the ``mtb`` and ``la`` schedules onto 1-D column block-cyclic shards, one
+rank a shard (:func:`repro_torch.core.distributed.factorize_mesh`),
+bitwise the single-device engine at the same schedule, pivots included.
 """
 from __future__ import annotations
 
@@ -139,6 +142,7 @@ def factorize(
     fused_pu: Optional[Callable] = None,
     device=None,
     mesh=None,
+    layout=None,
 ):
     """Run one scheduling variant of ``ops`` over a copy of ``a``.
 
@@ -148,11 +152,22 @@ def factorize(
     (``Backend.panel_fns``) supplies it — this is how ``backend="cuda"``
     routes every variant through the GETF2 kernel.  ``fused_pu`` (``la``
     only) is the fused panel-update kernel of LA_MB.
+
+    ``mesh=`` runs the same schedule over block-cyclic shards of a
+    ``DeviceMesh`` (every rank calls it with the same ``a``; each gets the
+    whole result), and ``layout=`` (a ``distributed.Layout``) picks the
+    mesh dimension; by default the active ``parallel.sharding`` Rules'
+    ``"panels"`` entry decides.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the distributed engine) is not ported yet: ROADMAP "
-            "Queue 1 item 17")
+        from repro_torch.core import distributed as _dist
+
+        return _dist.factorize_mesh(ops, a, b, variant=variant, depth=depth,
+                                    backend=backend, panel_fn=panel_fn,
+                                    fused_pu=fused_pu, mesh=mesh,
+                                    layout=layout, device=device)
+    if layout is not None:
+        raise ValueError("layout= is a mesh-path parameter; pass mesh= too")
     be = resolve_backend(backend)
     work = working_copy(a, resolve_device(device))
     if panel_fn is None and be.panel_fns is not None:

@@ -278,25 +278,29 @@ QR_OPS = StepOps(
 # ``device`` (None = the GPU) and returns (packed A, taus).
 # ---------------------------------------------------------------------------
 def qr_blocked(a, b: BlockSpec = 128, *, backend="cuda",
-               panel_fn: Optional[Callable] = None, device=None):
+               panel_fn: Optional[Callable] = None, device=None, mesh=None,
+               layout=None):
     """Blocked GEQRF (MTB).  Returns ``(packed, taus)``."""
     return pipeline.factorize(QR_OPS, a, b, variant="mtb", backend=backend,
-                              panel_fn=panel_fn, device=device)
+                              panel_fn=panel_fn, device=device, mesh=mesh,
+                              layout=layout)
 
 
 def qr_tiled(a, b: BlockSpec = 128, *, backend="cuda",
-             panel_fn: Optional[Callable] = None, device=None):
+             panel_fn: Optional[Callable] = None, device=None, mesh=None,
+             layout=None):
     """GEQRF with the trailing update fragmented into per-panel tasks
     (RTM)."""
     return pipeline.factorize(QR_OPS, a, b, variant="rtm", backend=backend,
-                              panel_fn=panel_fn, device=device)
+                              panel_fn=panel_fn, device=device, mesh=mesh,
+                              layout=layout)
 
 
 @pipeline.mark_depth_capable
 def qr_lookahead(a, b: BlockSpec = 128, *, backend="cuda",
                  panel_fn: Optional[Callable] = None,
                  fused_pu: Optional[Callable] = None, depth: int = 1,
-                 device=None):
+                 device=None, mesh=None, layout=None):
     """GEQRF with static look-ahead; ``depth`` panels in flight.
 
     Iteration k: ``PU(k+1)`` applies ``Q_kᵀ`` to the next panel's columns
@@ -306,7 +310,8 @@ def qr_lookahead(a, b: BlockSpec = 128, *, backend="cuda",
     """
     return pipeline.factorize(QR_OPS, a, b, variant="la", depth=depth,
                               backend=backend, panel_fn=panel_fn,
-                              fused_pu=fused_pu, device=device)
+                              fused_pu=fused_pu, device=device, mesh=mesh,
+                              layout=layout)
 
 
 def form_q(packed: torch.Tensor, taus: torch.Tensor, b: BlockSpec = 128, *,

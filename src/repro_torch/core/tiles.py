@@ -418,9 +418,18 @@ def _state(work, rows, cols, backend, panel_fn, dmf: str, lower: bool):
     return {"tiles": tiles, "ctx": {}, "backend": be, "panel_fn": panel_fn}
 
 
+def _no_mesh(mesh, layout) -> None:
+    """The tile DAG has no mesh lowering: the mesh engine's refusal."""
+    if mesh is not None or layout is not None:
+        raise ValueError("mesh scheduling supports variants 'mtb' and 'la', "
+                         "got 'tiled'")
+
+
 def _qr_tiles(a, b: BlockSpec = 128, *, backend="cuda",
-              panel_fn: Optional[Callable] = None, device=None) -> TileQR:
+              panel_fn: Optional[Callable] = None, device=None, mesh=None,
+              layout=None) -> TileQR:
     """Tiled compact-WY QR (``variant="tiled"``); returns :class:`TileQR`."""
+    _no_mesh(mesh, layout)
     work = working_copy(a, resolve_device(device))
     if work.dim() != 2:
         raise ValueError(f"QR needs a matrix, got shape {tuple(work.shape)}")
@@ -440,9 +449,10 @@ def _qr_tiles(a, b: BlockSpec = 128, *, backend="cuda",
 
 
 def _cholesky_tiles(a, b: BlockSpec = 128, *, backend="cuda",
-                    panel_fn: Optional[Callable] = None,
-                    device=None) -> torch.Tensor:
+                    panel_fn: Optional[Callable] = None, device=None,
+                    mesh=None, layout=None) -> torch.Tensor:
     """Tiled Cholesky (``variant="tiled"``); returns the lower factor L."""
+    _no_mesh(mesh, layout)
     work = working_copy(a, resolve_device(device))
     if work.dim() != 2 or work.shape[0] != work.shape[1]:
         raise ValueError(

@@ -73,20 +73,100 @@ __device__ void solve_vector(int64_t b, const T* t, int64_t ldt, T* x, int64_t x
 // Cooperative grids over the rows of a panel.
 // ---------------------------------------------------------------------------
 // The rows [r0, r1) that block `blk` of `G` owns in an m-row panel: chunks
-// of ceil(m / G) rows, at least min_chunk.  The QR and QRCP panels pass
-// their minimum rows a block, and their plans take G = ceil(m / min_chunk)
-// blocks where that fits the grid: every block but the last then owns
-// min_chunk rows, so which block owns a row, and where, depends on the row
-// alone.  A panel padded with zero rows below (a bucketed system) so gives
-// each block the same rows plus zeros at the end, and each cross-block sum
-// the same partials plus zero ones after them: the same bits.
+// of ceil(m / G) rows (the GETF2 and Hessenberg panels).
 __device__ __forceinline__ void owned_rows(int64_t m, int G, int blk, int64_t* chunk,
-                                           int64_t* r0, int64_t* r1, int64_t min_chunk = 1) {
-  const int64_t even = (m + G - 1) / G;
-  *chunk = even > min_chunk ? even : min_chunk;
+                                           int64_t* r0, int64_t* r1) {
+  *chunk = (m + G - 1) / G;
   *r0 = min(m, blk * *chunk);
   *r1 = min(m, *r0 + *chunk);
 }
+
+// The QR-family panels' rows (GEQR2/LARFT, xLAQPS): chunks of DEAL_ROWS
+// rows dealt round-robin over the grid, block `blk` of G owning chunks blk,
+// blk + G, blk + 2G, ..., in that order, with G = min(ceil(m / DEAL_ROWS),
+// the card's cap).  Which block owns a row, and its place in that block's
+// rows, depend on the row alone at every height once G is the cap; a panel
+// padded with zero rows below (a bucketed system) so gives each block its
+// raw rows followed by zeros, and each block-ordered cross-block sum its
+// raw partials followed by zero ones: its real part keeps the raw bits.
+// Local row rr of a block is its (rr / 32)-th chunk's row rr % 32; the
+// local order is the global order.
+constexpr int64_t DEAL_ROWS = 32;
+
+__host__ __device__ constexpr int64_t dealt_grid(int64_t m, int64_t cap) {
+  return (m + DEAL_ROWS - 1) / DEAL_ROWS < cap ? (m + DEAL_ROWS - 1) / DEAL_ROWS : cap;
+}
+
+// Rows a block owns at most: its ceil(chunks / G) whole chunks.
+__host__ __device__ constexpr int64_t dealt_max_rows(int64_t m, int64_t G) {
+  return ((m + DEAL_ROWS - 1) / DEAL_ROWS + G - 1) / G * DEAL_ROWS;
+}
+
+struct Dealt {
+  int64_t m;
+  int G, blk, n;  // n: the rows this block owns
+  __device__ __forceinline__ Dealt(int64_t m_, int G_, int blk_) : m(m_), G(G_), blk(blk_) {
+    n = lower(m_);
+  }
+  // the global row of local row rr
+  __device__ __forceinline__ int64_t row(int rr) const {
+    return static_cast<int64_t>((rr >> 5) * G + blk) * DEAL_ROWS + (rr & 31);
+  }
+  // the block's chunks below chunk ch, and whether ch is the block's; the
+  // rows a column pass asks about lie in the first round of chunks (ch <
+  // blk + G), where no division is needed
+  __device__ __forceinline__ void chunks_below(int ch, int* full, bool* mine) const {
+    const int d = ch - blk;
+    if (d <= 0) {
+      *full = 0;
+      *mine = d == 0;
+    } else if (d < G) {
+      *full = 1;
+      *mine = false;
+    } else {
+      *full = (d + G - 1) / G;
+      *mine = d % G == 0;
+    }
+  }
+  __device__ __forceinline__ bool owns(int64_t g) const {
+    if (g < 0 || g >= m) return false;
+    int full;
+    bool mine;
+    chunks_below(static_cast<int>(g >> 5), &full, &mine);
+    return mine;
+  }
+  // how many of the block's rows lie above global row g: the local index of
+  // the block's first row >= g
+  __device__ __forceinline__ int lower(int64_t g) const {
+    if (g <= 0) return 0;
+    const int64_t gg = g < m ? g : m;
+    int full;
+    bool mine;
+    chunks_below(static_cast<int>(gg >> 5), &full, &mine);
+    return full * static_cast<int>(DEAL_ROWS) + (mine ? static_cast<int>(gg & 31) : 0);
+  }
+  // the local index of global row g, -1 where another block owns it
+  __device__ __forceinline__ int local(int64_t g) const { return owns(g) ? lower(g) : -1; }
+};
+
+// A block's dealt rows (D.n of them): row rr at p + off(rr), rr * ld where
+// the block holds them itself (LOCAL: shared memory), else D.row(rr) * ld
+// (the panel in device memory).  A loop that reads and writes a row finds
+// its offset once, and one that moves by whole chunks adds advance(rows).
+template <typename T, typename I, bool LOCAL>
+struct DealtRows {
+  T* p;
+  I ld;
+  Dealt D;
+  __device__ __forceinline__ I off(int rr) const {
+    return LOCAL ? static_cast<I>(rr) * ld : static_cast<I>(D.row(rr)) * ld;
+  }
+  // off(rr + rows) - off(rr) where rows is a multiple of DEAL_ROWS
+  __device__ __forceinline__ I advance(int rows) const {
+    return LOCAL ? static_cast<I>(rows) * ld : static_cast<I>(rows) * D.G * ld;
+  }
+  __device__ __forceinline__ T& at(int rr, int c) const { return p[off(rr) + c]; }
+};
 
 template <typename Kernel>
 static cudaError_t launch_cooperative(Kernel kernel, int grid, size_t smem, void** args,
@@ -223,9 +303,9 @@ __host__ __device__ constexpr int colsum_groups(int64_t nc, int threads) {
   return static_cast<int>(rg < COLSUM_GROUPS ? rg : COLSUM_GROUPS);
 }
 
-template <typename T, int U, bool SQ, bool CG, typename I>
-__device__ __forceinline__ void col_sums_impl(const T* m, I ld, const T* x, I xs, int lo, int n,
-                                              int nc, T* red, T* out, bool flat) {
+template <typename T, int U, bool SQ, bool CG, typename Row, typename X>
+__device__ __forceinline__ void col_sums_impl(Row row_at, X x_at, int lo, int n, int nc, T* red,
+                                              T* out, bool flat) {
   const int tid = threadIdx.x, threads = blockDim.x;
   const int cw = nc < threads ? nc : threads, rg = flat ? 1 : colsum_groups(nc, threads);
   const int grp = tid / cw, ci = tid - grp * cw;
@@ -240,8 +320,8 @@ __device__ __forceinline__ void col_sums_impl(const T* m, I ld, const T* x, I xs
       }
 #pragma unroll(sizeof(T) == 4 ? 4 : 2)
       for (int rr = lo + grp; rr < n; rr += rg) {
-        const T* row = m + rr * ld;
-        const T xr = SQ ? T(0) : x[rr * xs];
+        const T* row = row_at(rr);
+        const T xr = SQ ? T(0) : x_at(rr);
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           const T y = CG ? __ldcg(row + cs[u]) : row[cs[u]];
@@ -275,19 +355,34 @@ __device__ __forceinline__ void col_sums_impl(const T* m, I ld, const T* x, I xs
 // COLSUM_COLS at once where the columns outnumber the threads) and row
 // groups rr = g (mod rg), rg = colsum_groups(nc); the groups' sums are
 // added in group order through red[] (blockDim.x entries).  Each sum takes
-// ceil((n - lo) / rg) terms in turn, then rg - 1.  `flat` takes rg = 1
-// whatever nc: each sum is then one chain over the rows in order, the same
-// for a block of any width (a padded system's extra columns).  CG: M is in
-// device memory and streamed past L1.
+// ceil((n - lo) / rg) terms in turn, then rg - 1.  CG: M is in device
+// memory and streamed past L1.
 constexpr int COLSUM_COLS = 8;
 template <typename T, bool SQ, bool CG = false, typename I>
 __device__ __forceinline__ void block_col_sums(const T* m, I ld, const T* x, I xs, int lo, int n,
-                                               int nc, T* red, T* out, bool flat = false) {
+                                               int nc, T* red, T* out) {
+  if (nc <= 0) return;
+  auto row_at = [=](int rr) { return m + rr * ld; };
+  auto x_at = [=](int rr) { return x[rr * xs]; };
+  if (nc <= static_cast<int>(blockDim.x))
+    col_sums_impl<T, 1, SQ, CG>(row_at, x_at, lo, n, nc, red, out, false);
+  else
+    col_sums_impl<T, COLSUM_COLS, SQ, CG>(row_at, x_at, lo, n, nc, red, out, false);
+}
+
+// The same sums with rg = 1 whatever nc ("flat"): each sum one chain over
+// the rows in order, the same for a block of any width or height (a padded
+// system's extra columns and rows).  Row rr starts at row_at(rr) (rows
+// anywhere, e.g. dealt chunks), x_rr = x_at(rr); red is not used.
+template <typename T, bool SQ, bool CG, typename Row, typename X>
+__device__ __forceinline__ void flat_col_sums(Row row_at, X x_at, int lo, int n, int nc,
+                                              T* out) {
   if (nc <= 0) return;
   if (nc <= static_cast<int>(blockDim.x))
-    col_sums_impl<T, 1, SQ, CG>(m, ld, x, xs, lo, n, nc, red, out, flat);
+    col_sums_impl<T, 1, SQ, CG>(row_at, x_at, lo, n, nc, static_cast<T*>(nullptr), out, true);
   else
-    col_sums_impl<T, COLSUM_COLS, SQ, CG>(m, ld, x, xs, lo, n, nc, red, out, flat);
+    col_sums_impl<T, COLSUM_COLS, SQ, CG>(row_at, x_at, lo, n, nc, static_cast<T*>(nullptr), out,
+                                          true);
 }
 
 // ---------------------------------------------------------------------------

@@ -15,17 +15,18 @@
 // and the cross-block sums after it), not by bytes or flops.
 //
 // Design: a cooperative grid of G blocks of QR_THREADS threads, at most one
-// block an SM (G = SMs for tall panels, fewer for short ones: at least
-// QR_MIN_ROWS rows a block).  Each block owns a contiguous chunk of rows:
-// exactly QR_MIN_ROWS of them (the last block the rest) where the panel has
-// at most QR_MIN_ROWS rows an SM, so that a panel padded with zero rows
-// (a bucketed system, serve/bucketing.py) sums the same partials in the
-// same blocks and adds only zero ones; every other sum below is fixed by
-// the index of its terms, not by nb, so padded columns change nothing
-// either, and the padded panel's real part is bitwise the raw panel's.
-//   * Rows resident: where the chunk fits shared memory (about 208 rows of
-//     nb = 128 in f64, so m up to about 27000 on 132 SMs) the block loads
-//     it once, factors all nb columns there and writes it back once.
+// block an SM (G = min(ceil(m / 32), SMs)).  The rows come in chunks of 32,
+// dealt round-robin: block b owns chunks b, b + G, b + 2G, ... (Dealt in
+// dense.cuh), so a row's block and its place among that block's rows
+// depend on the row alone at every height, and a panel padded with zero
+// rows (a bucketed system, serve/bucketing.py) sums the same partials in
+// the same blocks and adds only zero terms and zero partials after them;
+// every other sum below is fixed by the index of its terms, not by nb, so
+// padded columns change nothing either, and the padded panel's real part
+// is bitwise the raw panel's.
+//   * Rows resident: where a block's rows fit shared memory (about 208 rows
+//     of nb = 128 in f64, so m up to about 27000 on 132 SMs) the block loads
+//     them once, factors all nb columns there and writes them back once.
 //     Otherwise the same code runs on the rows in device memory (the
 //     streamed route); the plan picks the route by shape.
 //   * Column j is two short grid barriers.  Before the first, each block
@@ -65,7 +66,7 @@
 //     a column at a time, was most of LARFT's time.)
 //
 // Rounding: the longest chain of terms one element sums in turn is the Gram
-// entry's chunk rows, then ceil(G/32) block partials and five shuffle steps,
+// entry's rows of a block, then ceil(G/32) block partials and five shuffle steps,
 // then up to nb - 1 terms of the recurrence; GEQR2's sums are shorter
 // (ceil(chunk/QR_WARPS) + QR_WARPS, then the same cross-block sum).
 // kernels/panel_qr.py's plan() returns that count.
@@ -81,7 +82,6 @@
 #include "dense.cuh"
 
 constexpr int QR_THREADS = 512, QR_WARPS = QR_THREADS / 32;
-constexpr int64_t QR_MIN_ROWS = 32;  // rows a block at least
 constexpr int QR_MAX_BLOCKS = PANEL_MAX_BLOCKS;  // so a lane sums at most 8 block partials
 constexpr int T_GROUP = 256;         // columns of a row of T a warp holds at once
 constexpr int ROW_SLOTS = T_GROUP / 32;
@@ -123,19 +123,9 @@ __device__ __forceinline__ unsigned dynamic_smem_bytes() {
   return n;
 }
 
-// The rows [r0, r0 + n) of the panel: row rr of them at p + rr * ld.
-template <typename T, typename I>
-struct Rows {
-  T* p;
-  I ld;
-  int64_t r0;
-  int n;
-  __device__ __forceinline__ T& at(int rr, int c) const { return p[rr * ld + c]; }
-};
-
-__device__ __forceinline__ int clamp_to(int64_t x, int lo, int hi) {
-  return static_cast<int>(x < lo ? lo : (x > hi ? hi : x));
-}
+// A block's rows (dense.cuh): shared memory (L) or the panel itself.
+template <typename T, typename I, bool L>
+using Rows = DealtRows<T, I, L>;
 
 // The reflector of column j, the same in every block.
 template <typename T>
@@ -178,20 +168,22 @@ __device__ __forceinline__ Reflector<T> reflector(int nb, int G, int c, const T*
 // One pass over the block's rows: reflector j applied to them (j >= 0;
 // rows >= j, columns > j), then, while c = j + 1 < steps, the partials of
 // column c (s_i into ps[i][blk], i >= c) and row c into prow by its owner.
-template <typename T, typename I>
-__device__ __forceinline__ void column_pass(const Rows<T, I>& A, int nb, int steps, int j, int G,
+template <typename T, typename I, bool L>
+__device__ __forceinline__ void column_pass(const Rows<T, I, L>& A, int nb, int steps, int j, int G,
                                             const Reflector<T>& rf, const T* wv, T* red, T* ps,
                                             T* prow) {
   const int lane = threadIdx.x & 31, q = threadIdx.x >> 5;
   const int c = j + 1;
   const bool apply = j >= 0, part = c < steps;
-  // rows j and c as local rows (clamped to [-1, n]); the warp's rows are
-  // rr = q (mod QR_WARPS), from its first row >= max(jl, 0)
-  const int jl = clamp_to(j - A.r0, -1, A.n), cl = clamp_to(c - A.r0, -1, A.n);
-  const int lo = max(jl, 0);
+  // rows j and c as local rows (-1 where another block owns them); the
+  // warp's rows are rr = q (mod QR_WARPS), from its first row >= lo, the
+  // block's first row at or below row j
+  const int n = A.D.n;
+  const int jl = A.D.local(j), cl = A.D.local(c);
+  const int lo = A.D.lower(j), after = A.D.lower(c + 1);
   const int first = q + (lo > q ? (lo - q + QR_WARPS - 1) / QR_WARPS : 0) * QR_WARPS;
   if (apply) {  // column j becomes v (row j: beta), then column c takes its update
-    for (int rr = first + lane * QR_WARPS; rr < A.n; rr += 32 * QR_WARPS) {
+    for (int rr = first + lane * QR_WARPS; rr < n; rr += 32 * QR_WARPS) {
       T v;
       if (rr == jl) {
         v = T(1);
@@ -205,7 +197,7 @@ __device__ __forceinline__ void column_pass(const Rows<T, I>& A, int nb, int ste
     __syncwarp();
   }
   // the warp's first row below c: rows j and c (at most two) come before it
-  const int below = q + (cl + 1 > q ? (cl + 1 - q + QR_WARPS - 1) / QR_WARPS : 0) * QR_WARPS;
+  const int below = q + (after > q ? (after - q + QR_WARPS - 1) / QR_WARPS : 0) * QR_WARPS;
   for (int i0 = (part ? c : c + 1) + lane; i0 < nb; i0 += 32 * PASS_COLS) {
     T s[PASS_COLS], wi[PASS_COLS];
     bool upd[PASS_COLS];
@@ -216,7 +208,7 @@ __device__ __forceinline__ void column_pass(const Rows<T, I>& A, int nb, int ste
       upd[u] = apply && i > c && i < nb;
       wi[u] = upd[u] ? wv[i] : T(0);
     }
-    for (int rr = first; rr < min(below, A.n); rr += QR_WARPS) {  // rows j, c
+    for (int rr = first; rr < min(below, n); rr += QR_WARPS) {  // rows j, c
       const T v = !apply ? T(0) : (rr == jl ? T(1) : A.at(rr, j));
 #pragma unroll
       for (int u = 0; u < PASS_COLS; ++u) {
@@ -231,29 +223,38 @@ __device__ __forceinline__ void column_pass(const Rows<T, I>& A, int nb, int ste
       }
     }
     // the rows below c, PASS_ROWS at a time, all loaded before any store
-    for (int rr0 = below; rr0 < A.n; rr0 += QR_WARPS * PASS_ROWS) {
+    // (whole chunks an iteration: row g's offset moves on by a fixed
+    // stride, and rows past the block's last read the last one)
+    static_assert(QR_WARPS * PASS_ROWS % DEAL_ROWS == 0, "whole chunks an iteration");
+    const I last = A.off(n - 1), stride = A.advance(QR_WARPS * PASS_ROWS);
+    I ro[PASS_ROWS];
+#pragma unroll
+    for (int g = 0; g < PASS_ROWS; ++g) ro[g] = A.off(below + g * QR_WARPS);
+    for (int rr0 = below; rr0 < n; rr0 += QR_WARPS * PASS_ROWS) {
       T v[PASS_ROWS], ac[PASS_ROWS], x[PASS_ROWS][PASS_COLS];
 #pragma unroll
       for (int g = 0; g < PASS_ROWS; ++g) {
-        const int rr = min(rr0 + g * QR_WARPS, A.n - 1);
-        v[g] = apply ? A.at(rr, j) : T(0);
-        ac[g] = part ? A.at(rr, c) : T(0);
+        const T* row = A.p + (ro[g] < last ? ro[g] : last);
+        v[g] = apply ? row[j] : T(0);
+        ac[g] = part ? row[c] : T(0);
 #pragma unroll
-        for (int u = 0; u < PASS_COLS; ++u) x[g][u] = A.at(rr, min(i0 + 32 * u, nb - 1));
+        for (int u = 0; u < PASS_COLS; ++u) x[g][u] = row[min(i0 + 32 * u, nb - 1)];
       }
 #pragma unroll
       for (int g = 0; g < PASS_ROWS; ++g) {
         const int rr = rr0 + g * QR_WARPS;
-        if (rr >= A.n) break;
+        if (rr >= n) break;
 #pragma unroll
         for (int u = 0; u < PASS_COLS; ++u) {
           if (upd[u]) {
             x[g][u] = fma(-v[g], wi[u], x[g][u]);
-            A.at(rr, i0 + 32 * u) = x[g][u];
+            A.p[ro[g] + i0 + 32 * u] = x[g][u];
           }
           if (part) s[u] = fma(ac[g], x[g][u], s[u]);
         }
       }
+#pragma unroll
+      for (int g = 0; g < PASS_ROWS; ++g) ro[g] += stride;
     }
     if (part)
 #pragma unroll
@@ -271,11 +272,11 @@ __device__ __forceinline__ void column_pass(const Rows<T, I>& A, int nb, int ste
 
 // V[r, col] from the rows: as stored (an unpacked V), or from a packed
 // panel (unit diagonal, zero above it); zero past nb.
-template <typename T, bool PACKED, typename I>
-__device__ __forceinline__ T v_at(const Rows<T, I>& A, int rr, int col, int nb) {
+template <typename T, bool PACKED, typename I, bool L>
+__device__ __forceinline__ T v_at(const Rows<T, I, L>& A, int rr, int col, int nb) {
   if (col >= nb) return T(0);
   if (!PACKED) return A.at(rr, col);
-  const int64_t r = A.r0 + rr;
+  const int64_t r = A.D.row(rr);
   return r > col ? A.at(rr, col) : (r == col ? T(1) : T(0));
 }
 
@@ -284,8 +285,8 @@ __device__ __forceinline__ T v_at(const Rows<T, I>& A, int rr, int col, int nb) 
 // columns j (j = lane + 32*x): the tile's rows of V are read by every lane
 // alike and its columns by consecutive lanes, so shared memory serves both
 // without bank conflicts.
-template <typename T, bool PACKED, typename I>
-__device__ __forceinline__ void gram_partial(const Rows<T, I>& A, int nb, T* pgram) {
+template <typename T, bool PACKED, typename I, bool L>
+__device__ __forceinline__ void gram_partial(const Rows<T, I, L>& A, int nb, T* pgram) {
   const int lane = threadIdx.x & 31, q = threadIdx.x >> 5;
   const int64_t P = static_cast<int64_t>(nb) * (nb - 1) / 2;
   T* out = pgram + blockIdx.x * P;
@@ -300,7 +301,7 @@ __device__ __forceinline__ void gram_partial(const Rows<T, I>& A, int nb, T* pgr
 #pragma unroll
       for (int x = 0; x < 4; ++x) acc[u][x] = T(0);
     // a packed panel's rows r < nb hold R above the diagonal: V by v_at
-    const int head = PACKED ? clamp_to(nb - A.r0, 0, A.n) : 0;
+    const int head = PACKED ? A.D.lower(nb) : 0;
     for (int rr = 0; rr < head; ++rr) {
       T va[GRAM_ROWS], vb[4];
 #pragma unroll
@@ -319,7 +320,7 @@ __device__ __forceinline__ void gram_partial(const Rows<T, I>& A, int nb, T* pgr
     for (int u = 0; u < GRAM_ROWS; ++u) ci[u] = min(i0 + u, nb - 1);
 #pragma unroll
     for (int x = 0; x < 4; ++x) cj[x] = min(j0 + 32 * x, nb - 1);
-    for (int rr = head; rr < A.n; ++rr) {
+    for (int rr = head; rr < A.D.n; ++rr) {
       T va[GRAM_ROWS], vb[4];
 #pragma unroll
       for (int u = 0; u < GRAM_ROWS; ++u) va[u] = A.at(rr, ci[u]);
@@ -433,19 +434,17 @@ qr_panel_kernel(int64_t m, int64_t nb64, T* a, int64_t lda, T* tau, T* t, T* wsp
   cg::grid_group grid = cg::this_grid();
   const int G = gridDim.x, nb = static_cast<int>(nb64);
   const int lane = threadIdx.x & 31, q = threadIdx.x >> 5;
-  int64_t chunk, r0, r1;
-  owned_rows(m, G, blockIdx.x, &chunk, &r0, &r1, QR_MIN_ROWS);
+  const Dealt D(m, G, blockIdx.x);
   T* sv = reinterpret_cast<T*>(smem_raw);
   T* rv = sv + nb;
   T* wv = rv + nb;
   T* red = wv + nb;
-  const Rows<T, I> A{RESIDENT ? red + QR_WARPS * nb : a + r0 * lda,
-                     RESIDENT ? static_cast<I>(nb) : static_cast<I>(lda), r0,
-                     static_cast<int>(r1 - r0)};
+  const Rows<T, I, RESIDENT> A{RESIDENT ? red + QR_WARPS * nb : a,
+                               RESIDENT ? static_cast<I>(nb) : static_cast<I>(lda), D};
   const Workspace<T> ws(wsp, nb, G);
   if (RESIDENT) {
-    for (int rr = q; rr < A.n; rr += QR_WARPS)
-      for (int c = lane; c < nb; c += 32) A.at(rr, c) = a[(r0 + rr) * lda + c];
+    for (int rr = q; rr < D.n; rr += QR_WARPS)
+      for (int c = lane; c < nb; c += 32) A.at(rr, c) = a[D.row(rr) * lda + c];
     __syncthreads();
   }
   const int steps = static_cast<int>(min(m, nb64));
@@ -465,8 +464,8 @@ qr_panel_kernel(int64_t m, int64_t nb64, T* a, int64_t lda, T* tau, T* t, T* wsp
   __syncthreads();
   gram_partial<T, true>(A, nb, ws.pgram);
   if (RESIDENT)
-    for (int rr = q; rr < A.n; rr += QR_WARPS)
-      for (int c = lane; c < nb; c += 32) a[(r0 + rr) * lda + c] = A.at(rr, c);
+    for (int rr = q; rr < D.n; rr += QR_WARPS)
+      for (int c = lane; c < nb; c += 32) a[D.row(rr) * lda + c] = A.at(rr, c);
   __syncthreads();
   larft_finish(nb, tau, t, ws, red + QR_WARPS * nb);
 }
@@ -480,28 +479,27 @@ larft_kernel(int64_t m, int64_t nb64, const T* v, int64_t ldv, const T* tau, T* 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int G = gridDim.x, nb = static_cast<int>(nb64);
   const int lane = threadIdx.x & 31, q = threadIdx.x >> 5;
-  int64_t chunk, r0, r1;
-  owned_rows(m, G, blockIdx.x, &chunk, &r0, &r1, QR_MIN_ROWS);
-  const int n = static_cast<int>(r1 - r0);
+  const Dealt D(m, G, blockIdx.x);
+  const int n = D.n;
   const Workspace<T> ws(wsp, nb, G);
   T* tail = reinterpret_cast<T*>(smem_raw) + (3 + QR_WARPS) * nb;  // after qr_extras(nb)
   if (dynamic_smem_bytes() >= qr_extras<T>(nb) + static_cast<size_t>(n) * nb * sizeof(T)) {
     for (int rr = q; rr < n; rr += QR_WARPS)
-      for (int c = lane; c < nb; c += 32) tail[rr * nb + c] = v[(r0 + rr) * ldv + c];
+      for (int c = lane; c < nb; c += 32) tail[rr * nb + c] = v[D.row(rr) * ldv + c];
     __syncthreads();
-    gram_partial<T, false>(Rows<T, int>{tail, nb, r0, n}, nb, ws.pgram);
+    gram_partial<T, false>(Rows<T, int, true>{tail, nb, D}, nb, ws.pgram);
     __syncthreads();
   } else {
-    gram_partial<T, false>(Rows<T, int64_t>{const_cast<T*>(v) + r0 * ldv, ldv, r0, n}, nb,
-                           ws.pgram);
+    gram_partial<T, false>(Rows<T, int64_t, false>{const_cast<T*>(v), ldv, D}, nb, ws.pgram);
   }
   larft_finish(nb, tau, t, ws, tail);
 }
 
 // How an m x nb panel runs: out = {blocks, resident (1) or streamed (0),
-// rows a block (chunk), dynamic shared memory bytes of the panel kernel and
-// of the larft kernel, workspace elements, threads a block, the widest nb
-// whose shared memory fits}.  The larft entry takes the same blocks and rows.
+// rows a dealt chunk (32), dynamic shared memory bytes of the panel kernel
+// and of the larft kernel, workspace elements, threads a block, the widest
+// nb whose shared memory fits, rows a block at most}.  The larft entry
+// takes the same blocks and rows.
 template <typename T>
 static cudaError_t qr_plan(int64_t m, int64_t nb, int64_t* out) {
   if (m <= 0 || nb <= 0) return cudaErrorInvalidValue;
@@ -517,14 +515,11 @@ static cudaError_t qr_plan(int64_t m, int64_t nb, int64_t* out) {
   out[7] = static_cast<int64_t>(limit / qr_extras<T>(1));  // widest panel
   if (extras > limit) return cudaErrorInvalidValue;
   const int64_t cap = sms < QR_MAX_BLOCKS ? sms : QR_MAX_BLOCKS;
-  int64_t g = (m + QR_MIN_ROWS - 1) / QR_MIN_ROWS;
-  g = g < cap ? g : cap;
-  const int64_t even = (m + g - 1) / g;
-  const int64_t chunk = even > QR_MIN_ROWS ? even : QR_MIN_ROWS;  // as owned_rows
+  const int64_t g = dealt_grid(m, cap), rows = dealt_max_rows(m, g);
   // the Gram in shared memory for the recurrence where it fits, and the
   // larft kernel's rows of V where they fit too
   const size_t recur = qr_recurrence_smem<T>(nb) <= limit ? qr_recurrence_smem<T>(nb) : extras;
-  const size_t whole = extras + static_cast<size_t>(chunk * nb) * sizeof(T);
+  const size_t whole = extras + static_cast<size_t>(rows * nb) * sizeof(T);
   const size_t larft = whole > recur && whole <= limit ? whole : recur;
   int per_sm = 0;
   size_t smem = whole > recur ? whole : recur;
@@ -548,11 +543,12 @@ static cudaError_t qr_plan(int64_t m, int64_t nb, int64_t* out) {
   }
   out[0] = g;
   out[1] = resident ? 1 : 0;
-  out[2] = chunk;
+  out[2] = DEAL_ROWS;
   out[3] = static_cast<int64_t>(smem);
   out[4] = static_cast<int64_t>(larft);
   out[5] = Workspace<T>::elems(nb, g);
   out[6] = QR_THREADS;
+  out[8] = rows;
   return cudaSuccess;
 }
 

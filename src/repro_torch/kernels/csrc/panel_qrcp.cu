@@ -22,17 +22,18 @@
 // bound by latency, a chain of `steps` dependent cross-block reductions.
 //
 // Design: a cooperative grid of G blocks of QP_THREADS threads, at most one
-// block an SM (G = SMs for tall blocks, at least QP_MIN_ROWS rows a block;
-// the plan in kernels/panel_qrcp.py sizes it).  Each block owns a contiguous
-// chunk of rows (exactly QP_MIN_ROWS where the block has at most that many
-// rows an SM; then every column sum is one chain over the block's rows,
-// "flat", so a block padded with zero rows and tiny-norm columns (a
-// bucketed geqp3, serve/bucketing.py) gives its real columns the same bits
-// and pivots); where the chunk of the whole r x c block fits shared
-// memory (the window: 125 rows of 128 in f64) the block loads it once, runs
-// every step there and writes it back once ("resident"), else the same code
-// runs on the rows in device memory ("streamed"), with the rows' first
-// `steps` columns (V) copied to shared memory where they fit.  The columns
+// block an SM (G = min(ceil(r / 32), SMs); the plan in kernels/panel_qrcp.py
+// sizes it).  The rows come in chunks of 32 dealt round-robin over the
+// blocks (Dealt in dense.cuh: block b owns chunks b, b + G, ...), every
+// column sum is one chain over the block's rows in order ("flat") and every
+// row is brought current by the same lanes at every height, so a block
+// padded with zero rows and tiny-norm columns (a bucketed geqp3,
+// serve/bucketing.py) gives its real columns the same bits and pivots at
+// every height; where a block's rows of the whole r x c block fit shared
+// memory (the window: 125 rows of 128 in f64) the block loads them once,
+// runs every step there and writes them back once ("resident"), else the
+// same code runs on the rows in device memory ("streamed"), with the rows'
+// first `steps` columns (V) copied to shared memory where they fit.  The columns
 // are owned by the first `owners` blocks (column i by block i mod owners, a
 // warp a column, at least QP_WARPS columns an owner): the owner computes
 // F[i, :], the pivot row entries B[l, i] (l < steps) and the norm of column
@@ -75,17 +76,15 @@
 #include "dense.cuh"
 
 constexpr int QP_THREADS = 512, QP_WARPS = QP_THREADS / 32;
-constexpr int64_t QP_MIN_ROWS = 32;  // rows a block at least
 constexpr int QP_PAD = 4;            // resident rows' extra columns (bank spread)
 constexpr int QP_HEAD = 512;         // shared bytes of scalars before the vectors
 constexpr int QP_PREF = 4;           // F entries a lane loads ahead for its next column (l < 128)
 
 // Shared memory a block needs besides its rows: the scalars, then F[p, :j],
-// F[j, :j], the R entries of columns p and j, w and row j ([steps] each)
-// and the column sums' group partials ([QP_THREADS]).
+// F[j, :j], the R entries of columns p and j, w and row j ([steps] each).
 template <typename T>
 __host__ __device__ constexpr size_t qrcp_extras(int64_t steps) {
-  return (QP_HEAD + (6 * static_cast<size_t>(steps) + QP_THREADS) * sizeof(T) + 15) / 16 * 16;
+  return (QP_HEAD + 6 * static_cast<size_t>(steps) * sizeof(T) + 15) / 16 * 16;
 }
 
 // Workspace bytes of a grid of G blocks: the owners' candidates (column,
@@ -128,11 +127,8 @@ struct QpCol {
 // RESIDENT: the block's rows live in shared memory (row-major, ld c +
 // QP_PAD) after qrcp_extras(steps) bytes.  Otherwise, where vcopy is set,
 // their first `steps` columns (V below the diagonal) are kept there (ld
-// steps + QP_PAD) for bringing column j current.  FLAT: the grid's blocks
-// own QP_MIN_ROWS rows each (r <= QP_MIN_ROWS * G), and every column sum
-// is one chain over the block's rows, whatever c (a compile-time case, so
-// the other grids run the code they ran before it).
-template <typename T, bool RESIDENT, bool FLAT>
+// steps + QP_PAD) for bringing column j current.
+template <typename T, bool RESIDENT>
 __global__ void __launch_bounds__(QP_THREADS, 1)
 qrcp_panel_kernel(int64_t r, int64_t c64, int64_t steps64, T* b, int64_t ldb, T* v, T* ft,
                   T* tau, int32_t* piv, unsigned char* wsp, int owners, int vcopy) {
@@ -142,9 +138,8 @@ qrcp_panel_kernel(int64_t r, int64_t c64, int64_t steps64, T* b, int64_t ldb, T*
   const int G = gridDim.x, blk = blockIdx.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int c = static_cast<int>(c64), steps = static_cast<int>(steps64);
-  int64_t chunk, r0, r1;
-  owned_rows(r, G, blk, &chunk, &r0, &r1, QP_MIN_ROWS);
-  const int nr = static_cast<int>(r1 - r0);
+  const Dealt D(r, G, blk);
+  const int nr = D.n;
   const bool owner = blk < owners;
 
   int64_t* s_p = reinterpret_cast<int64_t*>(smem_raw);         // the pivot
@@ -157,16 +152,17 @@ qrcp_panel_kernel(int64_t r, int64_t c64, int64_t steps64, T* b, int64_t ldb, T*
   T* rj = rp + steps;                                          // B[:j, j] before the swap
   T* wl = rj + steps;                                          // w[:j]
   T* pr = wl + steps;                                          // row j: V[j, :j]
-  T* red = pr + steps;                                         // [QP_THREADS]
-  const RowSpan<T, I> B{RESIDENT ? reinterpret_cast<T*>(smem_raw + qrcp_extras<T>(steps))
-                                 : b + r0 * ldb,
-                        RESIDENT ? static_cast<I>(c + QP_PAD) : static_cast<I>(ldb), r0, nr};
-  // V's rows of the block (columns < steps): the resident rows, their copy,
-  // or device memory
-  T* const vrows = RESIDENT ? &B.at(0, 0)
-                   : vcopy ? reinterpret_cast<T*>(smem_raw + qrcp_extras<T>(steps))
-                           : b + r0 * ldb;
-  const int64_t vld = RESIDENT ? c + QP_PAD : vcopy ? steps + QP_PAD : ldb;
+  const DealtRows<T, I, RESIDENT> B{
+      RESIDENT ? reinterpret_cast<T*>(smem_raw + qrcp_extras<T>(steps)) : b,
+      RESIDENT ? static_cast<I>(c + QP_PAD) : static_cast<I>(ldb), D};
+  // V's rows of the block (columns < steps): the resident rows, their copy
+  // in shared memory (vcopy), or device memory
+  T* const vloc = reinterpret_cast<T*>(smem_raw + qrcp_extras<T>(steps));
+  const int vld = steps + QP_PAD;
+  const bool vshared = !RESIDENT && vcopy;
+  auto vat = [&](int rr, int l) -> T { return vshared ? vloc[rr * vld + l] : B.at(rr, l); };
+  // the column sums' rows, dealt (streamed rows read past L1)
+  auto row_at = [&](int rr) -> const T* { return &B.at(rr, 0); };
   int64_t* cidx = reinterpret_cast<int64_t*>(wsp);  // [G] owners' best column
   T* cval = reinterpret_cast<T*>(wsp + 8 * static_cast<size_t>(G));  // [G] and its norm
   T* ps = cval + G;                                  // [c][G] column partials
@@ -175,14 +171,13 @@ qrcp_panel_kernel(int64_t r, int64_t c64, int64_t steps64, T* b, int64_t ldb, T*
 
   if (RESIDENT) {
     for (int rr = warp; rr < nr; rr += QP_WARPS)
-      for (int i = lane; i < c; i += 32) B.at(rr, i) = b[(r0 + rr) * ldb + i];
+      for (int i = lane; i < c; i += 32) B.at(rr, i) = b[D.row(rr) * ldb + i];
     __syncthreads();
   }
 
   // the first norms: the blocks' column sums of squares, then the owners'
   // cross-block sums and candidates for step 0
-  block_col_sums<T, true, !RESIDENT>(&B.at(0, 0), B.ld, static_cast<const T*>(nullptr), I(0), 0,
-                                     nr, c, red, ps, FLAT);
+  flat_col_sums<T, true, !RESIDENT>(row_at, [](int) { return T(0); }, 0, nr, c, ps);
   grid.sync();
   if (owner) {
     T bv = T(-1);
@@ -201,7 +196,9 @@ qrcp_panel_kernel(int64_t r, int64_t c64, int64_t steps64, T* b, int64_t ldb, T*
   }
   grid.sync();
 
-  const int lg = group_lg(chunk, QP_THREADS);  // lanes a row bringing column j current
+  // lanes a row bringing column j current: as for a block of one chunk,
+  // whatever its rows, so a row's sum does not depend on the height
+  const int lg = group_lg(DEAL_ROWS, QP_THREADS);
   for (int j = 0; j < steps; ++j) {
     // A. the pivot: the owners' first largest norm (j where none is left)
     if (warp == 0) {
@@ -238,10 +235,10 @@ qrcp_panel_kernel(int64_t r, int64_t c64, int64_t steps64, T* b, int64_t ldb, T*
     __syncthreads();
     // swap columns j and p of the rows >= j; bring column j current:
     // x_q = B[q, p] - V[q, :j] . F[p, :j]
-    const int lo = static_cast<int>(j - r0 < 0 ? 0 : (j - r0 > nr ? nr : j - r0));
+    const int lo = D.lower(j);
     group_sums<T>(
         nr - lo, lg, [](int) { return 0; }, [&](int) { return j; },
-        [&](int e, int l, T acc) { return fma(vrows[(lo + e) * vld + l], fp[l], acc); },
+        [&](int e, int l, T acc) { return fma(vat(lo + e, l), fp[l], acc); },
         [&](int e, T dot) {
           const int rr = lo + e;
           const T x = B.at(rr, p);
@@ -249,8 +246,8 @@ qrcp_panel_kernel(int64_t r, int64_t c64, int64_t steps64, T* b, int64_t ldb, T*
           B.at(rr, j) = x - dot;
         });
     __syncthreads();
-    if (j >= r0 && j < r1) {  // row j as the pass finds it (column j: alpha)
-      const T* rowj = &B.at(static_cast<int>(j - r0), 0);
+    if (D.owns(j)) {  // row j as the pass finds it (column j: alpha)
+      const T* rowj = &B.at(D.lower(j), 0);
       for (int i0 = tid; i0 < c; i0 += 4 * QP_THREADS) {
         T x[4];
 #pragma unroll
@@ -262,9 +259,8 @@ qrcp_panel_kernel(int64_t r, int64_t c64, int64_t steps64, T* b, int64_t ldb, T*
       }
     }
     // P_i over the rows below j (P_j = |x|^2 there)
-    const int below = static_cast<int>(j + 1 - r0 < 0 ? 0 : (j + 1 - r0 > nr ? nr : j + 1 - r0));
-    block_col_sums<T, false, !RESIDENT>(&B.at(0, 0), B.ld, &B.at(0, j), B.ld, below, nr, c, red,
-                                        ps, FLAT);
+    flat_col_sums<T, false, !RESIDENT>(row_at, [&](int rr) { return B.at(rr, j); },
+                                       D.lower(j + 1), nr, c, ps);
     grid.sync();
 
     // B. warp 0 sums |x|^2 below row j and reads alpha; meanwhile the
@@ -364,7 +360,7 @@ qrcp_panel_kernel(int64_t r, int64_t c64, int64_t steps64, T* b, int64_t ldb, T*
     }
     // the block's rows of v (row j keeps beta) and of V
     for (int rr = lo + tid; rr < nr; rr += QP_THREADS) {
-      const int64_t qg = r0 + rr;
+      const int64_t qg = D.row(rr);
       T vq;
       if (qg == j) {
         vq = T(1);
@@ -372,7 +368,7 @@ qrcp_panel_kernel(int64_t r, int64_t c64, int64_t steps64, T* b, int64_t ldb, T*
       } else {
         vq = div_rn(B.at(rr, j), denom);
         B.at(rr, j) = vq;
-        if (!RESIDENT && vcopy) vrows[rr * vld + j] = vq;
+        if (vshared) vloc[rr * vld + j] = vq;
       }
       v[qg * steps + j] = vq;
     }
@@ -383,7 +379,7 @@ qrcp_panel_kernel(int64_t r, int64_t c64, int64_t steps64, T* b, int64_t ldb, T*
   if (RESIDENT) {  // rows < steps: their entries right of the diagonal are in device memory
     __syncthreads();
     for (int rr = warp; rr < nr; rr += QP_WARPS) {
-      const int64_t qg = r0 + rr;
+      const int64_t qg = D.row(rr);
       const int hi = qg < steps ? static_cast<int>(qg) + 1 : c;
       for (int i = lane; i < hi; i += 32) b[qg * ldb + i] = B.at(rr, i);
     }
@@ -391,11 +387,11 @@ qrcp_panel_kernel(int64_t r, int64_t c64, int64_t steps64, T* b, int64_t ldb, T*
 }
 
 // How an r x c block runs `steps` steps: out = {blocks, resident (1) or
-// streamed (0), rows a block (chunk), dynamic shared memory bytes,
+// streamed (0), rows a dealt chunk (32), dynamic shared memory bytes,
 // workspace bytes, threads a block, owner blocks, lanes a row (log2) of
 // the bring-current, the most steps whose shared memory fits, V's rows in
-// shared memory on the streamed route (1) or not (0), flat column sums
-// (1: fixed 32-row blocks) or not (0)}.
+// shared memory on the streamed route (1) or not (0), rows a block at
+// most}.
 template <typename T>
 static cudaError_t qrcp_plan(int64_t r, int64_t c, int64_t steps, int64_t* out) {
   if (r <= 0 || c <= 0 || steps <= 0) return cudaErrorInvalidValue;
@@ -405,39 +401,33 @@ static cudaError_t qrcp_plan(int64_t r, int64_t c, int64_t steps, int64_t* out) 
   const size_t limit = static_cast<size_t>(optin), extras = qrcp_extras<T>(steps);
   out[8] = static_cast<int64_t>((limit - qrcp_extras<T>(0)) / (6 * sizeof(T)));
   if (extras > limit) return cudaErrorInvalidValue;
-  int64_t g = (r + QP_MIN_ROWS - 1) / QP_MIN_ROWS;
-  g = g < sms ? g : sms;
-  g = g < PANEL_MAX_BLOCKS ? g : PANEL_MAX_BLOCKS;
-  const int64_t even = (r + g - 1) / g;
-  const int64_t chunk = even > QP_MIN_ROWS ? even : QP_MIN_ROWS;  // as owned_rows
-  const bool flat = chunk == QP_MIN_ROWS;
-  const size_t whole = extras + static_cast<size_t>(chunk * (c + QP_PAD)) * sizeof(T);
+  const int64_t cap = sms < PANEL_MAX_BLOCKS ? sms : PANEL_MAX_BLOCKS;
+  const int64_t g = dealt_grid(r, cap), rows = dealt_max_rows(r, g);
+  const size_t whole = extras + static_cast<size_t>(rows * (c + QP_PAD)) * sizeof(T);
   bool resident = whole <= limit;
   if (resident)
-    err = flat ? fits_one_block(qrcp_panel_kernel<T, true, true>, QP_THREADS, whole, &resident)
-               : fits_one_block(qrcp_panel_kernel<T, true, false>, QP_THREADS, whole, &resident);
+    err = fits_one_block(qrcp_panel_kernel<T, true>, QP_THREADS, whole, &resident);
   if (err != cudaSuccess) return err;
   // streamed: V's rows in shared memory where they fit
-  const size_t vrows = extras + static_cast<size_t>(chunk * (steps + QP_PAD)) * sizeof(T);
+  const size_t vrows = extras + static_cast<size_t>(rows * (steps + QP_PAD)) * sizeof(T);
   const bool vcopy = !resident && vrows <= limit;
   const size_t smem = resident ? whole : vcopy ? vrows : extras;
   bool streamed = true;
   if (!resident)
-    err = flat ? fits_one_block(qrcp_panel_kernel<T, false, true>, QP_THREADS, smem, &streamed)
-               : fits_one_block(qrcp_panel_kernel<T, false, false>, QP_THREADS, smem, &streamed);
+    err = fits_one_block(qrcp_panel_kernel<T, false>, QP_THREADS, smem, &streamed);
   if (err != cudaSuccess) return err;
   if (!streamed) return cudaErrorInvalidConfiguration;
   const int64_t own = (c + QP_WARPS - 1) / QP_WARPS;
   out[0] = g;
   out[1] = resident ? 1 : 0;
-  out[2] = chunk;
+  out[2] = DEAL_ROWS;
   out[3] = static_cast<int64_t>(smem);
   out[4] = static_cast<int64_t>(qrcp_workspace<T>(c, g));
   out[5] = QP_THREADS;
   out[6] = own < g ? own : g;
-  out[7] = group_lg(chunk, QP_THREADS);
+  out[7] = group_lg(DEAL_ROWS, QP_THREADS);
   out[9] = vcopy ? 1 : 0;
-  out[10] = flat ? 1 : 0;
+  out[10] = rows;
   return cudaSuccess;
 }
 
@@ -456,15 +446,10 @@ static cudaError_t launch_qrcp(int64_t r, int64_t c, int64_t steps, void* b, int
   int32_t* pp = static_cast<int32_t*>(piv);
   unsigned char* wp = static_cast<unsigned char*>(ws);
   void* args[] = {&r, &c, &steps, &bp, &ldb, &vp, &fp, &tp, &pp, &wp, &owners, &vcopy};
-  if (r <= QP_MIN_ROWS * grid)  // the plan's flat case: QP_MIN_ROWS rows a block
-    return resident ? launch_cooperative(qrcp_panel_kernel<T, true, true>, grid, smem, args,
-                                         stream, QP_THREADS)
-                    : launch_cooperative(qrcp_panel_kernel<T, false, true>, grid, smem, args,
-                                         stream, QP_THREADS);
-  return resident ? launch_cooperative(qrcp_panel_kernel<T, true, false>, grid, smem, args,
-                                       stream, QP_THREADS)
-                  : launch_cooperative(qrcp_panel_kernel<T, false, false>, grid, smem, args,
-                                       stream, QP_THREADS);
+  return resident ? launch_cooperative(qrcp_panel_kernel<T, true>, grid, smem, args, stream,
+                                       QP_THREADS)
+                  : launch_cooperative(qrcp_panel_kernel<T, false>, grid, smem, args, stream,
+                                       QP_THREADS);
 }
 
 extern "C" int repro_qrcp_panel_plan_f32(int64_t r, int64_t c, int64_t steps, int64_t* out) {

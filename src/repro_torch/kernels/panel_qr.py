@@ -3,11 +3,12 @@
 Kernel: ``csrc/panel_qr.cu`` (CUDA C++ for sm_90a), replacing the TPU
 kernel ``repro/kernels/panel_qr.py::qr_panel``.  The source note there says
 what bounds it on an H100 and how its design answers that: a cooperative
-grid of at most one block an SM over the panel's rows (exactly 32 rows a
-block where the panel has at most 32 rows an SM, so a panel padded with
-zero rows sums its real rows in the same blocks, and a bucketed system's
-answer is the raw one's), each block's rows kept in shared memory where
-they fit (the ``resident`` route, else
+grid of at most one block an SM over the panel's rows (chunks of 32 rows
+dealt round-robin over the blocks, so a row's block and its place there
+depend on the row alone: a panel padded with zero rows sums its real rows
+in the same blocks at every height, and a bucketed system's answer is the
+raw one's), each block's rows kept in shared memory where they fit (the
+``resident`` route, else
 ``streamed`` from device memory), two grid-wide barriers a column, every
 cross-block sum taken over per-block partials in a fixed order (no
 atomics), so a panel gives the same bits on every run.
@@ -23,8 +24,8 @@ atomics), so a panel gives the same bits on every run.
   that shape, so its T is bitwise the panel's for the same V; it is part
   of the same TPU kernel (whose body computes T), with a launch count of
   its own.
-* :func:`plan` shows the route, the blocks, the rows a block and the
-  longest chain of terms one output element sums in turn (the ``k`` of the
+* :func:`plan` shows the route, the blocks, the rows of a chunk and of a
+  block and the longest chain of terms one output element sums in turn (the ``k`` of the
   bound below).
 
 The plain PyTorch versions are :func:`repro_torch.core.qr.qr_panel_plain`
@@ -59,19 +60,19 @@ _LARFT_ARGS = [_build.c_i64, _build.c_i64, _build.c_ptr, _build.c_i64,
 _WARPS = 16   # warps a block (``csrc/panel_qr.cu``), for the chain count
 
 
-def _chain(grid: int, chunk: int, nb: int) -> int:
+def _chain(grid: int, rows: int, nb: int) -> int:
     """Longest chain of terms one output element sums in turn: a Gram entry
-    sums the block's ``chunk`` rows, then a lane ``⌈G/32⌉`` block partials
-    and five shuffle steps, then a T entry up to ``nb − 1`` recurrence
-    terms; GEQR2's sums (a warp's rows, the warps, the blocks, then the
+    sums a block's ``rows``, then a lane ``⌈G/32⌉`` block partials and five
+    shuffle steps, then a T entry up to ``nb − 1`` recurrence terms;
+    GEQR2's sums (a warp's rows, the warps, the blocks, then the
     reflector's two operations) are shorter."""
     cross = -(-grid // 32) + 5
-    return max(-(-chunk // _WARPS) + _WARPS + cross + 2, chunk + cross + nb - 1)
+    return max(-(-rows // _WARPS) + _WARPS + cross + 2, rows + cross + nb - 1)
 
 
 @functools.lru_cache(maxsize=None)
 def _plan(m: int, nb: int, dtype: torch.dtype, index: int) -> dict:
-    out = (_build.c_i64 * 8)()
+    out = (_build.c_i64 * 9)()
     fn = _build.function(_LIB, f"repro_qr_panel_plan_{_build.SUFFIX[dtype]}",
                          _PLAN_ARGS)
     with torch.cuda.device(index):
@@ -83,15 +84,16 @@ def _plan(m: int, nb: int, dtype: torch.dtype, index: int) -> dict:
     _build.check_launch(_LIB, err, f"qr_panel plan for {m} x {nb}")
     return {"route": "resident" if out[1] else "streamed", "grid": out[0],
             "chunk": out[2], "smem_bytes": out[3], "larft_smem_bytes": out[4],
-            "workspace": out[5], "threads": out[6],
-            "chain": _chain(out[0], out[2], nb)}
+            "workspace": out[5], "threads": out[6], "rows": out[8],
+            "chain": _chain(out[0], out[8], nb)}
 
 
 def plan(m: int, nb: int, dtype: torch.dtype, *,
          device: Optional[torch.device] = None) -> dict:
     """How an ``m × nb`` panel runs on a CUDA device: ``route``
-    (``resident`` or ``streamed``), ``grid`` blocks of ``threads``, rows a
-    block (``chunk``), dynamic shared memory a block of the panel and of the
+    (``resident`` or ``streamed``), ``grid`` blocks of ``threads``, the rows
+    of a dealt chunk (``chunk``, 32 at every height) and of a block at most
+    (``rows``), dynamic shared memory a block of the panel and of the
     larft kernel, workspace elements, and ``chain``, the k of the 4·k·eps
     bound.  Builds the library; cached per shape."""
     device = torch.device(device or "cuda")

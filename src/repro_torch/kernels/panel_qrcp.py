@@ -8,9 +8,10 @@ dependent steps) and how its design answers that: a cooperative grid of at
 most one block an SM over the block's rows, each block's rows kept in
 shared memory where they fit (the ``resident`` route, e.g. the 16384 × 128
 window) else ``streamed`` from device memory (the 16384 × 4096 global
-block), 32 rows a block and one chain a column sum (``flat``) where the
-block has at most 32 rows an SM (a padded block then gives its real part
-the raw block's bits and pivots), the columns owned by the first blocks, two grid barriers a step,
+block), the rows in chunks of 32 dealt round-robin over the blocks and one
+chain a column sum, so a padded block gives its real part the
+raw block's bits and pivots at every height, the columns owned by the
+first blocks, two grid barriers a step,
 every cross-block sum a warp's in a fixed order, so a block gives the same
 bits and the same pivots on every run.
 
@@ -24,7 +25,7 @@ GEMM kernel needs without a copy; ``piv`` holds panel-relative int32
 column interchanges.  Global QRCP hands it the whole trailing block,
 ``qrcp_local`` the bare ``steps``-column window — the same entry.
 :func:`plan` shows how a shape runs: the route, the grid, the rows a
-block, the owner blocks, the workspace and ``chain``, the longest chain of
+block at most, the owner blocks, the workspace and ``chain``, the longest chain of
 terms one element's value is summed through in a step (the ``c`` of the
 kernel's 4·c·eps bound against the plain version); a shape whose shared
 memory cannot fit (more than about 4700 steps in f64) is refused with a
@@ -59,7 +60,6 @@ _ARGS = [_build.c_i64, _build.c_i64, _build.c_i64, _build.c_ptr,
          _build.c_i64, _build.c_ptr, _build.c_ptr, _build.c_ptr,
          _build.c_ptr, ctypes.c_int, ctypes.c_int, _build.c_i64,
          ctypes.c_int, ctypes.c_int, _build.c_ptr, _build.c_ptr]
-_THREADS, _GROUPS = 512, 16   # threads a block; row groups a column sum at most
 
 
 def _outputs(block: torch.Tensor, steps: int):
@@ -115,21 +115,15 @@ def _tree(terms: int, lanes: int) -> int:
     return max(min(terms, lanes) - 1, 0).bit_length()
 
 
-def _chain(grid: int, chunk: int, c: int, steps: int, lg: int,
-           flat: bool = False) -> int:
+def _chain(grid: int, rows: int, steps: int, lg: int) -> int:
     """Longest chain of terms one element's value is summed through in a
     step: column j brought current (up to ``steps − 1`` terms over 2^lg
-    lanes, the butterfly, the subtraction), the block's column sum
-    (⌈chunk/g⌉ rows a row group, then the groups; g = 512 / min(c, 512),
-    at most 16, or 1 where the plan is ``flat``), the cross-block sum
-    (⌈G/32⌉ block partials a lane, the butterfly), w (two operations) and
-    the F recurrence (up to ``steps − 1`` terms over 32 lanes, the
-    butterfly, two operations)."""
+    lanes, the butterfly, the subtraction), the block's column sum (one
+    chain over its ``rows``), the cross-block sum (⌈G/32⌉ block partials a
+    lane, the butterfly), w (two operations) and the F recurrence (up to
+    ``steps − 1`` terms over 32 lanes, the butterfly, two operations)."""
     t = steps - 1
-    groups = 1 if flat else min(_THREADS // min(max(c, 1), _THREADS),
-                                _GROUPS)
     bring = -(-t // (1 << lg)) + _tree(t, 1 << lg) + 1
-    rows = -(-chunk // groups) + min(groups, chunk) - 1
     cross = -(-grid // 32) + _tree(grid, 32)
     return bring + rows + cross + 2 + (-(-t // 32) + _tree(t, 32) + 2)
 
@@ -153,20 +147,18 @@ def _plan(r: int, c: int, steps: int, dtype: torch.dtype, index: int) -> dict:
     return {"route": "resident" if out[1] else "streamed", "grid": out[0],
             "chunk": out[2], "smem_bytes": out[3], "workspace_bytes": out[4],
             "threads": out[5], "owners": out[6], "v_rows_shared": bool(out[9]),
-            "flat": bool(out[10]),
-            "chain": _chain(out[0], out[2], c, steps, out[7], bool(out[10]))}
+            "rows": out[10], "chain": _chain(out[0], out[10], steps, out[7])}
 
 
 def plan(r: int, c: int, steps: int, dtype: torch.dtype, *,
          device: Optional[torch.device] = None) -> dict:
     """How ``steps`` steps over an ``r × c`` block run on a CUDA device:
     ``route`` (``resident`` or ``streamed``), ``grid`` blocks of
-    ``threads`` (at most one an SM), rows a block (``chunk``), the blocks
-    that own columns (``owners``), dynamic shared memory a block, whether
-    a streamed block keeps V's rows in it (``v_rows_shared``), workspace
-    bytes, ``flat`` (32-row blocks whose column sums are one chain each:
-    a block padded with zero rows and columns gives its real part the same
-    bits), and ``chain``, the c of the 4·c·eps bound.  Builds the library;
+    ``threads`` (at most one an SM), the rows of a dealt chunk (``chunk``,
+    32 at every height) and of a block at most (``rows``), the blocks that
+    own columns (``owners``), dynamic shared memory a block, whether a
+    streamed block keeps V's rows in it (``v_rows_shared``), workspace
+    bytes, and ``chain``, the c of the 4·c·eps bound.  Builds the library;
     cached per shape; a ValueError where the steps' shared memory cannot
     fit."""
     device = torch.device(device or "cuda")

@@ -36,7 +36,9 @@ __all__ = ["ENGINE_CATS", "overlap", "tile_dag", "attainment_row",
 #: Categories emitted by the pipeline engine itself (the layer the
 #: overlap / critical-path math is defined over; driver spans would
 #: double-count the engine spans they enclose).  ``BCAST`` comes only from
-#: the mesh engine, which is not ported yet (ROADMAP Queue 1 item 17).
+#: the mesh engine (:mod:`repro_torch.core.distributed`): one span a panel
+#: broadcast on each rank, ``meta["shard"]`` its owner and ``meta["bytes"]``
+#: its payload, ``(nd − 1)·m·b·itemsize``.
 ENGINE_CATS = ("PF", "TU", "PU", "SWAP", "EPI", "BCAST")
 
 

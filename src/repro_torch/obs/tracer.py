@@ -8,7 +8,8 @@ layer above it) becomes a :class:`Span` tagged with its category, panel
 index, owning iteration and in-flight depth.  Categories
 (:data:`CATEGORIES`): ``PF`` (panel factorization), ``TU`` (bulk trailing
 update), ``PU`` (narrow update of a panel in flight), ``SWAP`` (row
-interchanges), ``EPI`` (the per-iteration epilogue of a two-sided DMF:
+interchanges), ``BCAST`` (a mesh run's panel broadcast, tagged with its
+owner ``shard`` and payload ``bytes``), ``EPI`` (the per-iteration epilogue of a two-sided DMF:
 Gauss–Jordan's update of the columns left of the panel and its commit),
 ``TILE`` (one task of the tile-DAG executor,
 :func:`repro_torch.core.tiles.run_dag`), ``drive`` (a whole driver call),
@@ -41,8 +42,8 @@ from typing import Any, Callable, Dict, List, Optional
 __all__ = ["Span", "Tracer", "trace", "active", "CATEGORIES"]
 
 #: The span categories the engine and the drivers emit.
-CATEGORIES = ("PF", "TU", "PU", "SWAP", "EPI", "TILE", "drive", "sweep",
-              "serve")
+CATEGORIES = ("PF", "TU", "PU", "SWAP", "EPI", "BCAST", "TILE", "drive",
+              "sweep", "serve")
 
 #: The currently installed tracer (None = tracing disabled, the default).
 _ACTIVE: Optional["Tracer"] = None

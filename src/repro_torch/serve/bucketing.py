@@ -19,10 +19,10 @@ ingredients make that true:
 * every reduction on the ``"cuda"`` backend's path sums its terms in an
   order fixed by the index of the term alone, so trailing zero terms leave
   the bits as they are: the GEMM's split-K chunks, the strip TRSM's
-  substitution order, the QR and QRCP panels' fixed 32-row blocks (where a
-  bucket's rows fit the grid) and, on CPU tensors, the plain versions'
-  chains and aligned pairwise sums.  :class:`repro_torch.serve.solver.
-  SolveServer` says where this stops.
+  substitution order, the QR and QRCP panels' 32-row chunks dealt
+  round-robin over their blocks (at every height) and, on CPU tensors, the
+  plain versions' chains and aligned pairwise sums.
+  :class:`repro_torch.serve.solver.SolveServer` says where this stops.
 """
 from __future__ import annotations
 

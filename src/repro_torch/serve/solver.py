@@ -17,7 +17,7 @@ driver (``gesv``, ``posv``, ``gels``, ``gels(pivot=True)`` at
 ``ServerConfig.block``) on the raw request shape, on CPU tensors (the
 kernels' plain versions) and on the GPU (the kernels), for ragged shapes
 sharing a bucket and for cached and direct requests alike.  It rests on
-the padding being exact (``bucketing``'s docstring) and on two limits:
+the padding being exact (``bucketing``'s docstring) and on one limit:
 
 * ``ServerConfig.block`` must send a raw system and its bucket down the
   same solve route: ``lu_solve_packed`` takes the fused small solve for
@@ -28,12 +28,10 @@ the padding being exact (``bucketing``'s docstring) and on two limits:
   solve is taken only where the whole real system lies in the first
   panel, whose sweep is the small solve's); the rule keeps a response's
   kernels, and its launch counts, those of its raw shape.
-* The QR and QRCP panel kernels give a block fixed 32-row chunks only
-  while the panel has at most 32 rows an SM (4224 rows on a 132-SM H100);
-  a ``gels``/``geqp3`` bucket taller than that splits its rows over the
-  blocks by its own height, so its answers may differ from the raw
-  shape's in the last bits (ROADMAP Queue 3).  ``gesv``/``posv`` have no
-  such limit.
+
+The QR and QRCP panel kernels deal a panel's rows to their blocks in
+32-row chunks round-robin, so a ``gels``/``geqp3`` bucket of any height
+(past 32 rows an SM too) sums its real rows as the raw shape does.
 
 Departures from the reference, all from running hand-written kernels
 rather than one ``vmap``-compiled program a bucket:
@@ -50,8 +48,14 @@ rather than one ``vmap``-compiled program a bucket:
   The kernels themselves are built once a library, at first use.
 * **``ServerConfig.backend`` defaults to ``"cuda"``** (the kernels; their
   plain versions on CPU tensors) and ``device`` to the GPU.
-  ``ServerConfig.mesh`` other than None raises ``NotImplementedError``
-  (the distributed engine is ROADMAP Queue 1 item 17).
+* **``ServerConfig.mesh`` is a ``DeviceMesh``, and the server is SPMD.**
+  Direct ``gesv``/``posv`` flushes factor each system over the mesh's
+  block-cyclic shards (:mod:`repro_torch.solve.batched`'s mesh loop, the
+  reference's path), bitwise the single-device answers.  Every rank of
+  the mesh runs the same server and submits the same requests in the same
+  order, as every rank calls a mesh driver with the same input; each rank
+  holds every response.  ``pump`` flushes what the mesh's first rank finds
+  due by its own clock, on every rank.
 """
 from __future__ import annotations
 
@@ -98,7 +102,8 @@ class ServerConfig:
     block: int = 32            # panel width (see the module docstring)
     cache_capacity: int = 64   # FactorCache entries
     backend: str = "cuda"
-    #: the distributed engine's mesh: not ported (ROADMAP Queue 1 item 17)
+    #: a torch.distributed.device_mesh.DeviceMesh: direct gesv/posv
+    #: batches factor each system over its block-cyclic shards
     mesh: Optional[object] = None
     #: where requests are solved: None = the GPU, "cpu" for the plain
     #: versions
@@ -106,7 +111,9 @@ class ServerConfig:
 
     def __post_init__(self):
         if self.mesh is not None:
-            raise NotImplementedError(drivers._NO_MESH)
+            from repro_torch.core.distributed import check_mesh
+
+            check_mesh(self.mesh)
         if self.max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
         if isinstance(self.block, bool) or not isinstance(self.block, int) \
@@ -265,22 +272,44 @@ class SolveServer:
     # ------------------------------------------------------------------
     def pump(self) -> int:
         """Flush every bucket that is full or past its wait budget.
-        Returns the number of responses produced."""
-        now = self.clock()
-        cfg = self.config
+        Returns the number of responses produced.
+
+        On a mesh, every rank flushes what the mesh's first rank chose by
+        its own clock (a mesh flush enters collectives, and the ranks'
+        clocks differ), so every rank calls ``pump`` at the same point of
+        the same request stream."""
+        plan = self._due(self.clock())
+        if self.config.mesh is not None:
+            from repro_torch.core.distributed import broadcast_object
+
+            plan = broadcast_object(self.config.mesh, plan)
         produced = 0
-        for qkey in list(self._queues):
+        for qkey, count in plan:
             q = self._queues.get(qkey, [])
-            while len(q) >= cfg.max_batch:
-                produced += self._flush(qkey, q[:cfg.max_batch])
-                del q[:cfg.max_batch]
-            if q and (now - q[0].submit_t) >= cfg.max_wait_s:
-                produced += self._flush(qkey, q)
-                q.clear()
+            if len(q) < count:
+                raise RuntimeError(
+                    f"the mesh's first rank flushes {count} requests of "
+                    f"{qkey[0]}, this rank holds {len(q)}: every rank must "
+                    f"submit the same requests")
+            produced += self._flush(qkey, q[:count])
+            del q[:count]
             if not q:
                 self._queues.pop(qkey, None)
         self.metrics.gauge("queue_depth").set(self._depth())
         return produced
+
+    def _due(self, now: float) -> List[Tuple[Tuple[BucketKey, bool], int]]:
+        """The flushes ``pump`` makes at ``now``, in order: (queue, requests)
+        for every full batch, then the rest of a queue whose oldest request
+        has waited ``max_wait_s``."""
+        cfg = self.config
+        plan = []
+        for qkey, q in self._queues.items():
+            full = len(q) // cfg.max_batch * cfg.max_batch
+            plan += [(qkey, cfg.max_batch)] * (full // cfg.max_batch)
+            if len(q) > full and now - q[full].submit_t >= cfg.max_wait_s:
+                plan.append((qkey, len(q) - full))
+        return plan
 
     def drain(self) -> int:
         """Flush everything regardless of admission policy."""
@@ -349,6 +378,20 @@ class SolveServer:
         """Every request padded and solved by the unbatched driver, in slot
         order."""
         self._first_served("solve", key, len(batch))
+        if self.config.mesh is not None and key.dmf in ("gesv", "posv"):
+            # the mesh's direct path: each system over the whole mesh in
+            # turn (solve.batched's mesh loop)
+            from repro_torch.solve import batched
+
+            pads = [bucketing.pad_request(r.dmf, r.a, r.b, key)
+                    for r in batch]
+            fn = (batched.gesv_batched if key.dmf == "gesv"
+                  else batched.posv_batched)
+            xs = fn(torch.stack([p[0] for p in pads]),
+                    torch.stack([p[1] for p in pads]), self.config.block,
+                    backend=self.config.backend, device=self.device,
+                    mesh=self.config.mesh)
+            return xs, [False] * len(batch)
         xs = [_driver(key.dmf, *bucketing.pad_request(r.dmf, r.a, r.b, key),
                       self.config, self.device) for r in batch]
         return xs, [False] * len(batch)

@@ -11,9 +11,11 @@ is no ``vmap`` over hand-written kernels, so here the systems run one after
 another, in slot order, through the port's own unbatched drivers — what the
 reference's mesh path already does (an eager per-system loop).  Each answer
 so is bitwise the unbatched driver's on that system, and a batch launches
-each kernel once a system and panel.  ``mesh=`` raises
-``NotImplementedError`` (the distributed engine is ROADMAP Queue 1 item
-17), as the drivers do.
+each kernel once a system and panel.  ``mesh=`` (and ``layout=``) runs the
+same loop with every system factored over the whole mesh in turn, the
+reference's own mesh path: the large-system regime a mesh is for.  Every
+rank of the mesh calls the batched entry with the same batch, and each
+answer is bitwise the single-device driver's.
 
 Inputs are ``(B, n, n)`` stacks (tensors or NumPy arrays) and ``(B, n, k)``
 or ``(B, n)`` right-hand sides; outputs stack the drivers' answers, and
@@ -47,57 +49,53 @@ def _systems(a, b=None) -> int:
     return a.shape[0]
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(drivers._NO_MESH)
-
-
 def gesv_batched(a, b, block: BlockSpec = 32, *, variant: str = "la",
                  depth: int = 1, backend="cuda", device=None,
-                 mesh=None) -> torch.Tensor:
+                 mesh=None, layout=None) -> torch.Tensor:
     """Solve ``A[i]·X[i] = B[i]`` for a stack of general square systems."""
-    _no_mesh(mesh)
     block = normalize_block(block)
     return torch.stack([
         drivers.gesv(a[i], b[i], block, variant=variant, depth=depth,
-                     backend=backend, device=device)
+                     backend=backend, device=device, mesh=mesh,
+                     layout=layout)
         for i in range(_systems(a, b))])
 
 
 def posv_batched(a, b, block: BlockSpec = 32, *, variant: str = "la",
                  depth: int = 1, backend="cuda", device=None,
-                 mesh=None) -> torch.Tensor:
+                 mesh=None, layout=None) -> torch.Tensor:
     """Solve a stack of SPD systems by Cholesky."""
-    _no_mesh(mesh)
     block = normalize_block(block)
     return torch.stack([
         drivers.posv(a[i], b[i], block, variant=variant, depth=depth,
-                     backend=backend, device=device)
+                     backend=backend, device=device, mesh=mesh,
+                     layout=layout)
         for i in range(_systems(a, b))])
 
 
 def lu_factor_batched(a, block: BlockSpec = 32, *, variant: str = "la",
                       depth: int = 1, backend="cuda", device=None,
-                      mesh=None):
+                      mesh=None, layout=None):
     """Factor a stack of systems once; returns batched :class:`LUFactors`."""
-    _no_mesh(mesh)
     block = normalize_block(block)
     return stack_factors([
         drivers.lu_factor(a[i], block, variant=variant, depth=depth,
-                          backend=backend, device=device)
+                          backend=backend, device=device, mesh=mesh,
+                          layout=layout)
         for i in range(_systems(a))])
 
 
 def cholesky_factor_batched(a, block: BlockSpec = 32, *,
                             variant: str = "la", depth: int = 1,
-                            backend="cuda", device=None, mesh=None):
+                            backend="cuda", device=None, mesh=None,
+                            layout=None):
     """Factor a stack of SPD systems; returns batched
     :class:`CholeskyFactors`."""
-    _no_mesh(mesh)
     block = normalize_block(block)
     return stack_factors([
         drivers.cholesky_factor(a[i], block, variant=variant, depth=depth,
-                                backend=backend, device=device)
+                                backend=backend, device=device, mesh=mesh,
+                          layout=layout)
         for i in range(_systems(a))])
 
 

@@ -12,6 +12,13 @@ library ops, or a :class:`~repro_torch.core.backend.Backend`) and
 ``device=`` (``None`` means the GPU; raises ``RuntimeError`` without one).
 ``block`` may be a scalar or a per-iteration schedule.  NumPy inputs are
 accepted; the caller's arrays are copied once and never modified.
+
+``mesh=`` (a ``torch.distributed.device_mesh.DeviceMesh``; LU, Cholesky
+and QR with ``mtb``/``la``/``la<d>``) factors over block-cyclic shards,
+one rank a shard, bitwise the single-device factors, pivots included
+(:mod:`repro_torch.core.distributed`); every rank calls the driver with
+the same input and solves on the gathered factors.  ``layout=`` picks the
+mesh dimension.
 """
 from __future__ import annotations
 
@@ -31,8 +38,6 @@ from repro_torch.solve.factors import (CholeskyFactors, HessenbergFactors,
 __all__ = ["lu_factor", "gesv", "cholesky_factor", "posv", "ldlt_factor",
            "qr_factor", "geqp3", "gels", "gehrd", "getri", "gecon"]
 
-_NO_MESH = ("mesh= (the distributed engine) is not ported yet: ROADMAP "
-            "Queue 1 item 17")
 
 
 def _traced(fn):
@@ -57,45 +62,55 @@ def _deepen(variant: str, depth: int) -> str:
     return variant if depth == 1 else deepen(variant, depth)
 
 
+def _mesh_kw(mesh, layout) -> dict:
+    """The variant driver's mesh arguments: none without a mesh, so the
+    single-device call is unchanged; with one, only the ``mtb``/``la``
+    family resolves (the others refuse it)."""
+    if mesh is None:
+        return {} if layout is None else {"layout": layout}
+    return {"mesh": mesh, "layout": layout}
+
+
 @_traced
 def lu_factor(a, block: BlockSpec = 128, *, variant: str = "la",
-              depth: int = 1, backend="cuda", device=None) -> LUFactors:
+              depth: int = 1, backend="cuda", device=None, mesh=None,
+              layout=None) -> LUFactors:
     """Factor ``P·A = L·U`` (LU with partial pivoting)."""
     be = resolve_backend(backend)
     lu, ipiv = get_variant("lu", _deepen(variant, depth))(
-        a, block, backend=be, device=device)
+        a, block, backend=be, device=device, **_mesh_kw(mesh, layout))
     return LUFactors.from_packed(lu, ipiv, block=normalize_block(block),
                                  backend=be)
 
 
 @_traced
 def gesv(a, b, block: BlockSpec = 128, *, variant: str = "la",
-         depth: int = 1, backend="cuda", device=None):
+         depth: int = 1, backend="cuda", device=None, mesh=None,
+         layout=None):
     """Solve ``A·X = B`` for general square A (LU with partial pivoting)."""
     return lu_factor(a, block, variant=variant, depth=depth, backend=backend,
-                     device=device).solve(b)
+                     device=device, mesh=mesh, layout=layout).solve(b)
 
 
 @_traced
 def cholesky_factor(a, block: BlockSpec = 128, *, variant: str = "la",
                     depth: int = 1, backend="cuda", device=None,
-                    mesh=None) -> CholeskyFactors:
+                    mesh=None, layout=None) -> CholeskyFactors:
     """Factor ``A = L·Lᵀ`` for symmetric positive-definite A (Cholesky)."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
     be = resolve_backend(backend)
     l = get_variant("cholesky", _deepen(variant, depth))(
-        a, block, backend=be, device=device)
+        a, block, backend=be, device=device, **_mesh_kw(mesh, layout))
     return CholeskyFactors(l=l, block=normalize_block(block), backend=be)
 
 
 @_traced
 def posv(a, b, block: BlockSpec = 128, *, variant: str = "la",
-         depth: int = 1, backend="cuda", device=None, mesh=None):
+         depth: int = 1, backend="cuda", device=None, mesh=None,
+         layout=None):
     """Solve ``A·X = B`` for symmetric positive-definite A (Cholesky)."""
     return cholesky_factor(a, block, variant=variant, depth=depth,
-                           backend=backend, device=device,
-                           mesh=mesh).solve(b)
+                           backend=backend, device=device, mesh=mesh,
+                           layout=layout).solve(b)
 
 
 @_traced
@@ -113,15 +128,13 @@ def ldlt_factor(a, block: BlockSpec = 128, *, variant: str = "la",
 @_traced
 def qr_factor(a, block: BlockSpec = 128, *, variant: str = "la",
               depth: int = 1, backend="cuda", device=None,
-              mesh=None) -> QRFactors | TiledQRFactors:
+              mesh=None, layout=None) -> QRFactors | TiledQRFactors:
     """Householder QR (GEQRF); any m, n (wide inputs stop once the rows
-    are exhausted).  ``variant="tiled"``, or a ``"tuned"`` winner that is
-    ``tiled``, returns :class:`TiledQRFactors`."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    are exhausted; a mesh takes m >= n only).  ``variant="tiled"``, or a
+    ``"tuned"`` winner that is ``tiled``, returns :class:`TiledQRFactors`."""
     be = resolve_backend(backend)
-    out = get_variant("qr", _deepen(variant, depth))(a, block, backend=be,
-                                                     device=device)
+    out = get_variant("qr", _deepen(variant, depth))(
+        a, block, backend=be, device=device, **_mesh_kw(mesh, layout))
     if isinstance(out, TileQR):
         return TiledQRFactors(tqr=out, block=normalize_block(block),
                               backend=be)
@@ -159,7 +172,8 @@ def geqp3(a, block: BlockSpec = 128, *, variant=None, local: bool = False,
 @_traced
 def gels(a, b, block: BlockSpec = 128, *, variant: str = "la",
          depth: int = 1, backend="cuda", pivot: bool = False,
-         local: bool = False, rcond=None, device=None, mesh=None):
+         local: bool = False, rcond=None, device=None, mesh=None,
+         layout=None):
     """Least squares ``argmin‖A·X − B‖₂`` for m ≥ n via Householder QR.
 
     ``pivot=True`` goes through :func:`geqp3` and returns the
@@ -168,10 +182,13 @@ def gels(a, b, block: BlockSpec = 128, *, variant: str = "la",
     becomes ``"mtb"`` there; an explicit variant passes through.
     ``local=True`` (with ``pivot=True``) selects windowed pivoting, where
     the ``variant``/``depth`` defaults pass through as for the others.
+    ``mesh=`` factors by unpivoted QR over the mesh; column-pivoted QR has
+    no mesh lowering, so ``pivot=True`` with a mesh is a ValueError.
     """
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
     if pivot:
+        if mesh is not None:
+            raise ValueError("pivot=True has no mesh path: column-pivoted "
+                             "QR is mesh-excluded (DESIGN.md §17)")
         if local:
             fac = geqp3(a, block, variant=variant, local=True, depth=depth,
                         backend=backend, device=device)
@@ -187,7 +204,7 @@ def gels(a, b, block: BlockSpec = 128, *, variant: str = "la",
         raise ValueError("rcond requires pivot=True (rank truncation needs "
                          "the column-pivoted factorization)")
     return qr_factor(a, block, variant=variant, depth=depth, backend=backend,
-                     device=device).solve(b)
+                     device=device, mesh=mesh, layout=layout).solve(b)
 
 
 @_traced

@@ -80,8 +80,10 @@ class TuneConfig:
     kernel_blocks: Optional[Tuple[int, int, int]] = None
     #: tile size of a ``variant="tiled"`` winner, None otherwise
     tile: Optional[int] = None
-    #: device layout of a mesh-measured winner (not ported; kept so the
-    #: reference's entries read back whole)
+    #: device layout of a mesh-measured winner, ``(nd,)`` for the mesh
+    #: engine's 1-D column cycle (``search(mesh=...)``), None for a
+    #: single-device winner; ``"tuned"`` runs a winner on the mesh the
+    #: caller passes, and refuses a mesh winner whose cycle has another size
     mesh_shape: Optional[Tuple[int, ...]] = None
     from_cache: bool = False         # True when returned without measuring
 

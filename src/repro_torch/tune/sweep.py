@@ -32,8 +32,15 @@ Two departures from the reference, on purpose:
   ``kernel_blocks=None``, and ``"tuned"`` refuses an entry that has them.
 
 Calls run eagerly (there is no ``jax.jit``); a candidate's time includes
-the driver's copy of the input, as a user's call does.  ``mesh=`` is not
-ported (ROADMAP Queue 1 item 17).
+the driver's copy of the input, as a user's call does.
+
+Device layout.  ``search(mesh=...)`` (a ``DeviceMesh``; every rank of it
+calls ``search`` alike) also measures a block-cyclic twin of each ranked
+``mtb``/``la``-family candidate with a uniform schedule, label suffix
+``/d{nd}`` (``Candidate.mesh_shape = (nd,)``); a mesh winner persists
+``TuneConfig.mesh_shape``.  Each rank times its own calls; the mesh's
+collectives keep the ranks in step, and the first rank's timings decide
+for all (broadcast over the world), so every rank caches the same winner.
 """
 from __future__ import annotations
 
@@ -74,12 +81,20 @@ class Candidate:
     #: the tile size of a ``variant="tiled"`` candidate (the leading width
     #: of its schedule, from which the tile grid is built), else None
     tile: Optional[int] = None
+    #: the mesh shape a block-cyclic twin is measured over, ``(nd,)`` for
+    #: the engine's 1-D column cycle; None = one device
+    mesh_shape: Optional[Tuple[int, ...]] = None
 
     def label(self) -> str:
         tail = "uniform" if is_uniform(self.schedule) else "tail"
         lbl = f"{self.variant}/b{self.schedule[0]}/{tail}/{self.backend}"
         if self.tile is not None:
             lbl += f"/t{self.tile}"
+        if self.mesh_shape is not None:
+            nd = 1
+            for d in self.mesh_shape:
+                nd *= d
+            lbl += f"/d{nd}"
         return lbl
 
 
@@ -141,17 +156,24 @@ def _time_fn(fn, a: torch.Tensor, *, warmup: int = 1,
     return statistics.median(times)
 
 
-def _run(dmf: str, cand: Candidate, a: torch.Tensor):
+def _run(dmf: str, cand: Candidate, a: torch.Tensor, mesh=None):
     from repro_torch.core.lookahead import get_variant
 
+    kw = {}
+    if cand.mesh_shape is not None:
+        if mesh is None:
+            raise ValueError(f"candidate {cand.label()} needs the live mesh "
+                             f"it was enumerated for")
+        kw["mesh"] = mesh
     return get_variant(dmf, cand.variant)(
-        a, cand.schedule, backend=get_backend(cand.backend), device=a.device)
+        a, cand.schedule, backend=get_backend(cand.backend), device=a.device,
+        **kw)
 
 
 def _measure(dmf: str, cand: Candidate, a: torch.Tensor, *,
-             warmup: int, repeats: int) -> float:
+             warmup: int, repeats: int, mesh=None) -> float:
     """Median seconds of one candidate, eager calls."""
-    return _time_fn(lambda x: _run(dmf, cand, x), a, warmup=warmup,
+    return _time_fn(lambda x: _run(dmf, cand, x, mesh), a, warmup=warmup,
                     repeats=repeats)
 
 
@@ -200,7 +222,38 @@ def _candidates(dmf: str, n: int, dtype, blocks: Sequence[int],
     return out
 
 
-def _trace_candidates(dmf, n, dtype, a, timings) -> list:
+def _mesh_twins(dmf: str, chosen: Sequence[Candidate], mesh) -> list:
+    """Block-cyclic twins of the ranked candidates (the device-layout axis):
+    ``mtb``/``la``-family candidates with uniform schedules of the DMFs the
+    mesh engine lowers.  Appended after ranking (as the baseline is), so a
+    live mesh is always measured."""
+    from repro_torch.core.distributed import (DIST_REGISTRY, axis_size,
+                                              resolve_axis)
+
+    if dmf not in DIST_REGISTRY:
+        return []
+    nd = axis_size(mesh, resolve_axis(mesh))
+    twins = []
+    for c in chosen:
+        base, _ = parse_variant(c.variant)
+        if base not in ("mtb", "la") or not is_uniform(c.schedule):
+            continue
+        if c.tile is not None:
+            continue
+        twin = dataclasses.replace(c, mesh_shape=(nd,))
+        if twin not in twins and twin not in chosen:
+            twins.append(twin)
+    return twins
+
+
+def _agree(timings: dict, mesh) -> dict:
+    """The mesh's first rank's timings on every rank of the mesh."""
+    from repro_torch.core.distributed import broadcast_object
+
+    return dict(broadcast_object(mesh, list(timings.items())))
+
+
+def _trace_candidates(dmf, n, dtype, a, timings, mesh=None) -> list:
     """One traced run per measured candidate (:class:`CandidateTrace`)."""
     from repro_torch.obs import report as obs_report
     from repro_torch.obs import tracer as obs_tracer
@@ -208,7 +261,7 @@ def _trace_candidates(dmf, n, dtype, a, timings) -> list:
     out = []
     for cand, measured_s in timings.items():
         with obs_tracer.trace() as trc:
-            _run(dmf, cand, a)
+            _run(dmf, cand, a, mesh)
         try:
             predicted = model.predict(dmf, n, dtype, cand.variant,
                                       cand.schedule, cand.backend)
@@ -249,14 +302,16 @@ def search(
     so ``result.seconds <= result.baseline_seconds`` on the device that ran
     the search.  ``trace_sink``: a list that receives one
     :class:`CandidateTrace` per measured candidate, recorded after the
-    timed runs so they never perturb the stored numbers.
+    timed runs so they never perturb the stored numbers.  ``mesh``: a
+    ``DeviceMesh`` whose every rank calls ``search`` alike; it adds the
+    ``/d{nd}`` twins (module doc).
     """
     from repro_torch.core.lookahead import TUNABLE
 
     if mesh is not None:
-        raise NotImplementedError(
-            "search(mesh=...) (the device-layout axis over the distributed "
-            "engine) is not ported yet: ROADMAP Queue 1 item 17")
+        from repro_torch.core.distributed import check_mesh
+
+        check_mesh(mesh)
     if dmf not in TUNABLE:
         raise ValueError(
             f"{dmf!r} is not tunable: its block size defines the output "
@@ -285,12 +340,14 @@ def search(
             variant=base_variant,
             schedule=expand_schedule(n, min(BASELINE_BLOCK, n)), backend=be)
     chosen += [b for b in baselines.values() if b not in chosen]
+    if mesh is not None:
+        chosen += _mesh_twins(dmf, chosen, mesh)
 
     timings = {}
     for cand in chosen:
         try:
             timings[cand] = _measure(dmf, cand, a, warmup=warmup,
-                                     repeats=repeats)
+                                     repeats=repeats, mesh=mesh)
         except ValueError as e:
             # a schedule this DMF refuses; any other fault propagates
             warnings.warn(f"tune: skipped {cand.label()}: {e}")
@@ -299,9 +356,12 @@ def search(
             print(f"tune: {cand.label()}: {timings[cand] * 1e3:.2f} ms")
     if not timings:
         raise RuntimeError(f"no tuning candidate succeeded for {dmf} n={n}")
+    if mesh is not None:
+        timings = _agree(timings, mesh)
 
     if trace_sink is not None:
-        trace_sink.extend(_trace_candidates(dmf, n, dtype, a, timings))
+        trace_sink.extend(_trace_candidates(dmf, n, dtype, a, timings,
+                                            mesh=mesh))
 
     # one entry per cold backend: "tuned" dispatches on the caller's
     # backend, so each key records the best candidate measured on it
@@ -314,7 +374,7 @@ def search(
             dmf=dmf, shape=(n, n), dtype=dtype_name(dtype),
             backend=measured_on(be, dev), variant=best.variant,
             schedule=best.schedule, depth=parse_variant(best.variant)[1],
-            tile=best.tile, seconds=mine[best],
+            tile=best.tile, mesh_shape=best.mesh_shape, seconds=mine[best],
             baseline_seconds=mine.get(baselines[be], mine[best]))
         cache.put(keys[be], hits[be])
     return next(h for h in (hits[be] for be in backends) if h is not None)

@@ -132,12 +132,15 @@ def test_stack_and_take_factors():
 
 
 def test_mesh_raises_naming_item_17():
+    """The mesh path (ROADMAP item 17) takes a DeviceMesh: anything else is
+    a TypeError naming the type it expects, from every batched entry (the
+    mesh loop itself runs in ``tests/test_torch_distributed.py``)."""
     a, spd, b = _stack(1, 8, 1, "float64")
     for fn, args in ((batched.gesv_batched, (a, b)),
                      (batched.posv_batched, (spd, b)),
                      (batched.lu_factor_batched, (a,)),
                      (batched.cholesky_factor_batched, (spd,))):
-        with pytest.raises(NotImplementedError, match="item 17"):
+        with pytest.raises(TypeError, match="expects a torch.distributed"):
             fn(*args, mesh=object(), **CPU)
     with pytest.raises(ValueError, match="batch"):
         batched.gesv_batched(a[0], b[0], **CPU)

@@ -42,6 +42,8 @@ import repro_torch.serve.engine, repro_torch.serve.metrics
 import repro_torch.launch.serve
 import repro_torch.core.tiles, repro_torch.tune, repro_torch.tune.sweep
 import repro_torch.obs.report, repro_torch.obs.export
+import repro_torch.core.distributed, repro_torch.launch.mesh
+import repro_torch.parallel
 from repro_torch.kernels import _build
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -80,7 +82,9 @@ def test_no_source_file_imports_jax_or_the_reference():
             PORT / "obs" / "report.py", PORT / "obs" / "export.py",
             PORT / "tune" / "__init__.py", PORT / "tune" / "cache.py",
             PORT / "tune" / "model.py", PORT / "tune" / "schedule.py",
-            PORT / "tune" / "sweep.py"} <= set(files)
+            PORT / "tune" / "sweep.py", PORT / "core" / "distributed.py",
+            PORT / "launch" / "mesh.py",
+            PORT / "parallel" / "sharding.py"} <= set(files)
     offenders = [str(f.relative_to(SRC)) for f in files
                  if _FORBIDDEN.search(f.read_text())]
     assert offenders == []

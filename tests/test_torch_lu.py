@@ -189,7 +189,7 @@ def test_variant_registry():
 
 def test_engine_rejects_what_it_does_not_run():
     a = np.eye(4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
+    with pytest.raises(TypeError, match="expects a torch.distributed"):
         pipeline.factorize(lu.LU_OPS, a, 2, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="square"):
         lu.lu_blocked(np.ones((4, 3)), 2, device="cpu")

@@ -227,9 +227,9 @@ def test_error_paths():
         gels(a, rhs, 16, local=True, device="cpu")
     with pytest.raises(ValueError, match="rcond requires pivot=True"):
         gels(a, rhs, 16, rcond=1e-3, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
+    with pytest.raises(TypeError, match="DeviceMesh, got builtins.object"):
         gels(a, rhs, 16, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
+    with pytest.raises(TypeError, match="DeviceMesh, got builtins.object"):
         qr_factor(a, 16, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="rhs rows"):
         qr_factor(a, 16, device="cpu").solve(rhs[:5])

@@ -268,7 +268,7 @@ def test_drivers_and_registry_take_tiled():
                               device="cpu"),
                  lambda: qr_factor(s, 16, variant="tiled", mesh=object(),
                                    device="cpu")):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
+        with pytest.raises(ValueError, match="'mtb' and 'la', got 'tiled'"):
             call()
 
 

@@ -93,9 +93,9 @@ QRCP_MARKS = [
     ("    const int p = static_cast<int>(*s_p);", True, "pivot"),
     ("    // swap columns j and p of the rows >= j; bring column j current:",
      True, "F[p, :j] read"),
-    ("    if (j >= r0 && j < r1) {  // row j as the pass finds it", True,
+    ("    if (D.owns(j)) {  // row j as the pass finds it", True,
      "swap, bring-current"),
-    ("    block_col_sums<T, false, !RESIDENT>(", True, "row j published"),
+    ("    flat_col_sums<T, false, !RESIDENT>(row_at,", True, "row j published"),
     ("    grid.sync();\n\n    // B. warp 0", True, "pass"),
     ("    // B. warp 0 sums |x|^2 below row j and reads alpha;", True,
      "barrier 1"),
