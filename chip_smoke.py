@@ -229,11 +229,40 @@
 15d. ``qr_bucket_tall``: ``gels`` 4324 x 100 (4 right-hand sides, seed 88,
     block 128) in its 8192 x 128 bucket, bitwise the raw shape's answer,
     with both QR panel plans.
+15e. ``train_grad``: the gradient routes of the two kernels
+    (``FlashAttentionFn``, ``Wkv6Fn``) at small shapes, float32 and
+    bfloat16 (the kernels' dtypes): the gradients of q, k, v and of r, k,
+    v, log w, u, s0 bitwise autograd through the plain formulation on the
+    same inputs and output gradients, the forwards within ``attn_expect``
+    and ``wkv6_expect``, one launch a forward and none in the backward;
+    at the train step's shapes (bfloat16) the kernel's forward ms, the
+    Function's forward + backward ms and the plain forward's.
+15f. ``train``: phi3-medium-14b and rwkv6-7b at full width, depth cut to
+    4 (``TRAIN_LAYERS``), bfloat16, seeded random weights, batches of
+    4 x 1024 tokens of ``SyntheticTask(noise=0)`` over the first 512
+    tokens (``TRAIN_TASK_VOCAB``; the loss over the whole vocabulary):
+    phi3 8 AdamW steps,
+    rwkv6 8 AdamW steps and 10 DMF-Shampoo steps, and 10 DMF-Shampoo
+    steps at depth 1, where the 4096-wide weights are 2-D and
+    preconditioned (9 leaves; none at depth 4, whose stacked weights take
+    Adam, as in the reference).  Gates: every loss finite, the mean of
+    the last two below the first, the kernel launched layers x (forward +
+    remat recompute) times a step and no other kernel.  Records step ms
+    (p50), tokens/s, peak memory, the optimizer's ms (Shampoo with and
+    without a refresh) and device ms by kernel of one profiled step.
+15g. ``train_resume``: a reduced phi3 (bfloat16) checkpointed at step 4 and
+    restored into a fresh ``Trainer``, every leaf bitwise the saved one;
+    its next 4 losses within ``RESUME_TOL`` of the uninterrupted run's.
+15h. ``shampoo_seed``: ``cholesky_norm_seed`` (the look-ahead Cholesky at
+    block 32, float32) of a 4096 x 4096 Gram matrix, bracketing
+    ``torch.linalg.matrix_norm(A, 2)`` (seed ≤ 1.001·‖A‖₂ ≤ 1.001·n·seed),
+    the Cholesky kernels launched; beside it the damped statistic of the
+    depth-1 Shampoo run (recorded) and ``torch.linalg.cholesky``'s ms.
 
 Launch counts are set to 0 just before each path and read just after it;
 each kernel of a path must have launched in it (``flash_attention`` and
-``wkv6_fused`` on their serving paths, the others on the factorization
-paths).
+``wkv6_fused`` on their serving paths and in every train step, the others
+on the factorization paths).
 
 Each phase prints one JSON line and raises on failure (non-zero exit).
 Then come the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and
@@ -310,6 +339,8 @@ ROUNDING_RATIO = 2.0
 STEPWISE_S = 256                 # token-by-token decode over two chunks of 128
 #: kernels checked on the serving paths, not on the factorization paths
 SERVING_KERNELS = ("flash_attention", "wkv6_fused")
+#: a part of each serving kernel's device symbol, to find it in a profile
+KERNEL_SYMBOLS = {"flash_attention": "flash_", "wkv6_fused": "wkv6_tile"}
 RESIDUAL_LIMIT = 100.0
 TILE_BLOCKS = (256, 512)         # 9d: tiled Cholesky's tiles at n = N
 TILE_QR_BLOCK = 256              # 9d: tiled QR's tiles at QR_M x QR_N
@@ -341,6 +372,32 @@ MESH_WORLDS = ((1, (("d1", (1,), ("model",), None),)),
 MESH_VARIANTS = ("mtb", "la", "la2")
 #: 15d: the tall gels bucket of the QR panel's dealt chunks
 TALL_GELS = (4324, 100, 4, 88)    # m, n, right-hand sides, seed
+#: 15e: the Functions' gradient checks: flash (B, H, S, D) over 2 KV heads,
+#: WKV6 (B, H, S, D) from a state
+TRAIN_GRAD_ATTN = (2, 8, 256, 64)
+TRAIN_GRAD_WKV = (2, 4, 200, 64)
+#: 15f: the train phase, full width at depth TRAIN_LAYERS (the whole
+#: model's weights, gradients and AdamW moments do not fit one card):
+#: batches of TRAIN_B x TRAIN_S tokens, TRAIN_STEPS AdamW steps (a warm-up
+#: of 2 to TRAIN_LR, then a cosine), SHAMPOO_STEPS DMF-Shampoo steps (one
+#: refresh round of 10)
+TRAIN_LAYERS, TRAIN_B, TRAIN_S = 4, 4, 1024
+TRAIN_STEPS, SHAMPOO_STEPS, TRAIN_LR = 8, 10, 1e-3
+#: The synthetic task's tokens are drawn below TRAIN_TASK_VOCAB; every loss
+#: still runs over the model's whole vocabulary.  Drawn from all 65536 or
+#: 100352 tokens, a batch of 4096 sees most tokens once, so no run of a
+#: few steps can learn the next-token map and the loss moves within the
+#: batch-to-batch noise (rwkv6-7b, 8 AdamW steps: 11.47 first, 11.61
+#: last); over 512 tokens the map is seen many times a batch and the loss
+#: falls within the phase.
+TRAIN_TASK_VOCAB = 512
+#: 15g: the resumed steps' losses against the uninterrupted run's,
+#: relative.  The restored state is bitwise the saved one, so the first
+#: resumed step repeats the uninterrupted one's forward; after it, the
+#: embedding backward's atomic adds (index_put with accumulate) sum each
+#: token's rows in another order, which moves a bfloat16 gradient by an
+#: ulp here and there, and the loss by far less than 1e-3 in three steps.
+RESUME_S, RESUME_TOL = 256, 1e-3
 
 
 def _mesh_job(rank, cfg):
@@ -2582,11 +2639,13 @@ def main() -> int:
         for x in tree.values():
             yield from leaves(x) if isinstance(x, dict) else (x,)
 
-    def device_busy(fn):
+    def device_busy(fn, top=6, match=()):
         """Wall ms of ``fn`` under ``torch.profiler``, the ms in which the
         card ran a kernel or copy (the union of their intervals) and the
-        device time by kernel name (top 6); the profiler's own host cost
-        lengthens the wall time, so the busy ms are the number to read."""
+        device time by kernel name (the ``top`` longest), with the summed
+        ms of the names containing each string of ``match``; the
+        profiler's own host cost lengthens the wall time, so the busy ms
+        are the number to read."""
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2606,11 +2665,15 @@ def main() -> int:
             if b > end:
                 busy += b - max(a, end)
                 end = b
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        return {"wall_ms": wall,
-                "busy_ms": busy / 1e3 if spans else None,   # not measured
-                "kernels": len(spans),
-                "top_ms": {name[:60]: ms for name, ms in top}}
+        longest = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+        out = {"wall_ms": wall,
+               "busy_ms": busy / 1e3 if spans else None,   # not measured
+               "kernels": len(spans),
+               "top_ms": {name[:60]: ms for name, ms in longest}}
+        if match:
+            out["ms_by_match"] = {m: sum(ms for name, ms in by_name.items()
+                                         if m in name) for m in match}
+        return out
 
     def serve(cfg, phase, kernel):
         """Serve ``cfg`` (seeded random weights made on the card) through
@@ -3326,6 +3389,333 @@ def main() -> int:
           "nrhs": TALL_GELS[2], "seed": TALL_GELS[3], "block": BLOCK,
           **tall})
 
+    # ---- 15e. train_grad: the kernels' Functions against autograd --------
+    from repro_torch import tree as T_
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.pipeline import SyntheticTask
+    from repro_torch.optim import shampoo as shampoo_mod
+    from repro_torch.train import checkpoint as ckpt_mod
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    def fn_vs_plain(fn, plain, ins, gouts, kernel):
+        """Run ``fn`` (a Function route) and ``plain`` (its plain
+        formulation) on copies of ``ins`` that require a gradient and
+        back-propagate ``gouts`` through both: (the Function's outputs, its
+        launches in the forward, in forward and backward, all gradients
+        bitwise equal)."""
+        a = [t.clone().requires_grad_(True) for t in ins]
+        b = [t.clone().requires_grad_(True) for t in ins]
+        ops.reset_launches()
+        outs = _as_tuple(fn(*a))
+        n_fwd = ops.launches()[kernel]
+        torch.autograd.backward(outs, gouts)
+        n_all = ops.launches()[kernel]
+        torch.autograd.backward(_as_tuple(plain(*b)), gouts)
+        same = all(torch.equal(x.grad, y.grad) for x, y in zip(a, b))
+        return [o.detach() for o in outs], n_fwd, n_all, same
+
+    def train_inputs(seed, dtype, *shapes):
+        """N(0, 1) tensors of ``shapes``, the first three in ``dtype``."""
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(s, generator=gen, device=dev).to(
+            dtype if i < 3 else torch.float32) for i, s in enumerate(shapes)]
+
+    def wkv_train_inputs(b, h, s, d, dtype, seed):
+        """r, k, v, log w (drawn as phase 13's), u, s0, and the two output
+        gradients."""
+        r, k, v, z, u, s0, go, gs = train_inputs(
+            seed, dtype, (b, h, s, d), (b, h, s, d), (b, h, s, d),
+            (b, h, s, d), (h, d), (b, h, d, d), (b, h, s, d), (b, h, d, d))
+        return (r, k, v, -torch.exp(-0.6 + 0.42 * z), 0.5 * u,
+                0.1 * s0), (go, gs)
+
+    grad_rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        row = {}
+        ck = {"chunk_q": 128, "chunk_k": 128}
+        bq, hq, sq, dq = TRAIN_GRAD_ATTN
+        q, k, v, g = train_inputs(SEED + 50, dtype, (bq, hq, sq, dq),
+                                  (bq, 2, sq, dq), (bq, 2, sq, dq))[:3] + \
+            train_inputs(SEED + 51, dtype, (bq, hq, sq, dq))
+        (out,), n_fwd, n_all, same = fn_vs_plain(
+            lambda *t: attention.flash_attention_train(*t, **ck),
+            lambda *t: attention.chunked_attention_plain(*t, **ck),
+            (q, k, v), (g,), "flash_attention")
+        want, tol = attention.attn_expect(q, k, v)
+        err, ratio = attn_err(out, want, tol)
+        check(same and n_fwd == 1 and n_all == 1 and ratio <= 1.0,
+              f"train_grad flash {dtype}: bitwise {same}, launches "
+              f"{n_fwd}/{n_all}, error/bound {ratio}")
+        row["flash_attention"] = {
+            "shape": list(TRAIN_GRAD_ATTN), "kv_heads": 2, **ck,
+            "grads": ["q", "k", "v"], "grads_bitwise_plain": same,
+            "launches_forward": n_fwd, "launches_forward_backward": n_all,
+            "max_abs_err": err, "err_over_tol": ratio}
+        ins, gouts = wkv_train_inputs(*TRAIN_GRAD_WKV, dtype, SEED + 52)
+        (out, sfin), n_fwd, n_all, same = fn_vs_plain(
+            lambda *t: wkv.wkv6_train(*t[:5], s0=t[5], chunk=64),
+            lambda *t: wkv.wkv6_fused_plain(*t[:5], s0=t[5], chunk=64),
+            ins, gouts, "wkv6_fused")
+        want, tol, s_want, s_tol = wkv.wkv6_expect(*ins[:5], s0=ins[5],
+                                                   chunk=64)
+        ratio = max(wkv_within(out, want, tol),
+                    wkv_within(sfin, s_want, s_tol))
+        check(same and n_fwd == 1 and n_all == 1 and ratio <= 1.0,
+              f"train_grad wkv {dtype}: bitwise {same}, launches "
+              f"{n_fwd}/{n_all}, error/bound {ratio}")
+        row["wkv6_fused"] = {
+            "shape": list(TRAIN_GRAD_WKV), "chunk": 64, "from_state": True,
+            "grads": ["r", "k", "v", "logw", "u", "s0"],
+            "grads_bitwise_plain": same, "launches_forward": n_fwd,
+            "launches_forward_backward": n_all,
+            "max_abs_err": float((out.double() - want).abs().max()),
+            "err_over_tol": ratio}
+        grad_rows[str(dtype)] = row
+        del q, k, v, g, ins, gouts, out, sfin, want, tol
+
+    # the Functions at the train step's shapes (bfloat16, one layer): the
+    # kernel's forward, the Function's forward + backward (the plain
+    # recompute's VJP) and the plain formulation's forward, on a busy card
+    def fwd_bwd_ms(fn, ins, gouts):
+        leaves_ = [t.clone().requires_grad_(True) for t in ins]
+
+        def run():
+            for t in leaves_:
+                t.grad = None
+            torch.autograd.backward(_as_tuple(fn(*leaves_)), gouts)
+        return queued_ms(run, 3)
+
+    ck = {"chunk_q": 512, "chunk_k": 1024}
+    q, k, v, g = train_inputs(
+        SEED + 53, torch.bfloat16, (TRAIN_B, 40, TRAIN_S, 128),
+        (TRAIN_B, 10, TRAIN_S, 128), (TRAIN_B, 10, TRAIN_S, 128))[:3] + \
+        train_inputs(SEED + 54, torch.bfloat16, (TRAIN_B, 40, TRAIN_S, 128))
+    attn_cost = {
+        "shape": [TRAIN_B, 40, TRAIN_S, 128], "kv_heads": 10, **ck,
+        "kernel_forward_ms": queued_ms(lambda: attention.flash_attention(
+            q, k, v, block_q=512, block_k=1024), 5),
+        "forward_backward_ms": fwd_bwd_ms(
+            lambda *t: attention.flash_attention_train(*t, **ck), (q, k, v),
+            (g,)),
+        "plain_forward_ms": queued_ms(
+            lambda: attention.chunked_attention_plain(q, k, v, **ck), 3)}
+    attn_cost["backward_ms"] = attn_cost["forward_backward_ms"] \
+        - attn_cost["kernel_forward_ms"]
+    ins, gouts = wkv_train_inputs(TRAIN_B, 64, TRAIN_S, 64, torch.bfloat16,
+                                  SEED + 55)
+    wkv_chunk = get_config(RWKV_ARCH).rwkv_chunk
+    wkv_cost = {
+        "shape": [TRAIN_B, 64, TRAIN_S, 64], "chunk": wkv_chunk,
+        "kernel_forward_ms": queued_ms(lambda: wkv.wkv6_fused(
+            *ins[:5], chunk=wkv_chunk), 5),
+        "forward_backward_ms": fwd_bwd_ms(
+            lambda *t: wkv.wkv6_train(*t, chunk=wkv_chunk)[0], ins[:5],
+            gouts[:1]),
+        "plain_forward_ms": queued_ms(lambda: wkv.wkv6_fused_plain(
+            *ins[:5], chunk=wkv_chunk), 3)}
+    wkv_cost["backward_ms"] = wkv_cost["forward_backward_ms"] \
+        - wkv_cost["kernel_forward_ms"]
+    del q, k, v, g, ins, gouts
+    emit({"phase": "train_grad", "dtypes": grad_rows,
+          "at_train_shapes_bf16": {"flash_attention": attn_cost,
+                                   "wkv6_fused": wkv_cost},
+          "nvidia_smi": smi})
+    torch.cuda.empty_cache()
+
+    # ---- 15f. train: phi3-medium-14b and rwkv6-7b, full width, depth 4 -----
+    def train_run(cfg, tc, kernel, label):
+        """``tc.steps`` train steps of ``cfg`` (seeded random weights made on
+        the card, batches of TRAIN_B x TRAIN_S tokens of the noiseless
+        synthetic task over TRAIN_TASK_VOCAB tokens): gates every loss finite, the mean of the last two
+        below the first, ``kernel`` launched layers x (forward + remat
+        recompute) times a step and no other kernel; records step ms (p50
+        after the first), tokens/s, peak memory, the optimizer's ms a step
+        and the device ms by kernel of one profiled step.  Returns the
+        trainer (its state the last step's) and the record."""
+        src = SyntheticTask(vocab_size=TRAIN_TASK_VOCAB, seq_len=TRAIN_S,
+                            noise=0.0)
+        sync()
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, tc, src)
+        sync()
+        init_s = time.perf_counter() - t0
+        remat = cfg.remat and cfg.num_layers > 1
+        per_step = cfg.num_layers * (2 if remat else 1)
+        # one reference to the state, so each step frees the one before
+        state, tr.state = tr.state, None
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms, counts = [], [], []
+        for i in range(tc.steps):
+            batch = tr._host_batch(i)
+            ops.reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            state, metrics = tr.train_step(state, batch)
+            losses.append(float(metrics["loss"]))
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            counts.append(ops.launches())
+        peak = torch.cuda.max_memory_allocated()
+        others = {n: c_ for cnt in counts for n, c_ in cnt.items()
+                  if n != kernel and c_}
+        launches = [cnt[kernel] for cnt in counts]
+        check(all(np.isfinite(losses)), f"train {label}: losses {losses}")
+        check(np.mean(losses[-2:]) < losses[0],
+              f"train {label}: the loss did not fall: {losses}")
+        check(all(n == per_step for n in launches) and not others,
+              f"train {label}: {kernel} launches a step {launches}, "
+              f"expected {per_step}; others {others}")
+        batch = tr._host_batch(tc.steps)
+        _, grads = tr.value_and_grad(state.params, batch)
+        opt = tr.optimizer
+        kron = [i for i, p in enumerate(T_.leaves(state.params))
+                if isinstance(opt, shampoo_mod.DMFShampoo) and opt._is_kron(p)]
+        opt_ms = {}
+        if kron:
+            # a step that refreshes a preconditioned leaf's roots and one
+            # that refreshes none (the state's step set to the one before)
+            hits = [s for s in range(1, opt.refresh_every + 1)
+                    if any(opt.refreshes(s, i) for i in kron)]
+            idle = [s for s in range(1, opt.refresh_every + 1)
+                    if s not in hits]
+            for key, steps_ in (("refresh", hits), ("no_refresh", idle)):
+                if steps_:
+                    st = state.opt_state._replace(step=torch.full_like(
+                        state.opt_state.step, steps_[0] - 1))
+                    opt_ms[key] = time_ms(lambda: opt.update(
+                        grads, st, state.params), 3)
+        else:
+            opt_ms["update"] = time_ms(lambda: opt.update(
+                grads, state.opt_state, state.params), 3)
+        del grads
+        prof = device_busy(lambda: tr.train_step(state, batch), top=8,
+                           match=(KERNEL_SYMBOLS[kernel], "nvjet", "gemm",
+                                  "elementwise", "reduce"))
+        tr.state = state
+        p50 = statistics.median(ms[1:])
+        full = get_config(cfg.name).num_layers
+        rec = {"arch": cfg.name, "dtype": cfg.dtype, "layers": cfg.num_layers,
+               "reduced": {"num_layers": [full, cfg.num_layers],
+                           "why": "the whole model's weights, gradients and "
+                                  "AdamW moments (12 bytes a param) exceed "
+                                  "one 80 GB card"},
+               "params": sum(t.numel() for t in T_.leaves(state.params)),
+               "optimizer": tc.optimizer, "preconditioned_leaves": len(kron),
+               "batch": TRAIN_B, "seq": TRAIN_S, "steps": tc.steps,
+               "peak_lr": tc.peak_lr, "warmup_steps": tc.warmup_steps,
+               "remat": remat, "init_s": init_s, "losses": losses,
+               "step_ms": ms, "step_ms_p50": p50,
+               "tokens_per_s": TRAIN_B * TRAIN_S / (p50 / 1e3),
+               "peak_memory_bytes": peak,
+               "allocated_after_init_bytes": resident,
+               f"{kernel}_launches_per_step": launches[0],
+               "optimizer_ms": opt_ms, "profiled_step": prof,
+               "nvidia_smi": smi}
+        return tr, rec
+
+    train_recs = {}
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=TRAIN_LAYERS)
+    tc = TrainerConfig(steps=TRAIN_STEPS, per_device_batch=TRAIN_B,
+                       peak_lr=TRAIN_LR, warmup_steps=2)
+    tr, train_recs["phi3_adamw"] = train_run(cfg, tc, "flash_attention",
+                                             "phi3 adamw")
+    del tr
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config(RWKV_ARCH), num_layers=TRAIN_LAYERS)
+    tr, train_recs["rwkv6_adamw"] = train_run(cfg, tc, "wkv6_fused",
+                                              "rwkv6 adamw")
+    del tr
+    torch.cuda.empty_cache()
+    tcs = dataclasses.replace(tc, steps=SHAMPOO_STEPS, optimizer="shampoo")
+    tr, train_recs["rwkv6_shampoo"] = train_run(cfg, tcs, "wkv6_fused",
+                                                "rwkv6 shampoo")
+    del tr
+    torch.cuda.empty_cache()
+    # one layer: a segment of one repeat keeps 2-D weights, which DMF-
+    # Shampoo preconditions (the 4096-wide roots); at depth 4 the stacked
+    # (4, d, d) weights take Adam, as in the reference
+    cfg1 = dataclasses.replace(cfg, num_layers=1)
+    tr, train_recs["rwkv6_shampoo_1_layer"] = train_run(
+        cfg1, tcs, "wkv6_fused", "rwkv6 shampoo 1 layer")
+    kron_n = {k_: train_recs[k_]["preconditioned_leaves"]
+              for k_ in ("rwkv6_shampoo", "rwkv6_shampoo_1_layer")}
+    check(kron_n == {"rwkv6_shampoo": 0, "rwkv6_shampoo_1_layer": 9},
+          f"train: preconditioned leaves {kron_n}")
+    stat_leaf, stat = next(
+        (path, st) for path, st in T_.flatten_with_paths(
+            tr.state.opt_state.l_stats) if st.shape[0] == cfg.d_model)
+    del tr
+    torch.cuda.empty_cache()
+    emit({"phase": "train", **train_recs})
+
+    # ---- 15g. train_resume: checkpoint at step 4, restore, continue ------
+    cfg_r = dataclasses.replace(reduced_config(get_config(ARCH)),
+                                dtype="bfloat16", remat=True)
+    src = SyntheticTask(vocab_size=cfg_r.vocab_size, seq_len=RESUME_S,
+                        noise=0.0)
+    with tempfile.TemporaryDirectory() as d:
+        tcr = TrainerConfig(steps=8, per_device_batch=TRAIN_B, peak_lr=2e-3,
+                            warmup_steps=2, ckpt_dir=d, ckpt_every=4,
+                            log_every=100)
+        first = Trainer(cfg_r, tcr, src)
+        head = first.run(steps=4)
+        saved = [t.detach().clone() for t in T_.leaves(first.state)]
+        second = Trainer(cfg_r, tcr, src)
+        restored, manifest = ckpt_mod.restore_checkpoint(
+            ckpt_mod.latest_checkpoint(d), second.state)
+        bitwise = manifest["step"] == 4 and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(saved, T_.leaves(restored)))
+        resumed = second.run(steps=8)
+        straight = first.run(steps=8, resume=False)
+    dev_rel = [abs(a - b) / b for a, b in zip(resumed, straight)]
+    check(bitwise, "train_resume: a restored leaf differs from the saved one")
+    check(len(resumed) == len(straight) == 4
+          and max(dev_rel) <= RESUME_TOL,
+          f"train_resume: resumed losses {resumed} against {straight}")
+    emit({"phase": "train_resume", "arch": cfg_r.name, "dtype": cfg_r.dtype,
+          "layers": cfg_r.num_layers, "d_model": cfg_r.d_model,
+          "batch": TRAIN_B, "seq": RESUME_S, "saved_step": 4,
+          "restored_bitwise": bitwise, "first_losses": head,
+          "resumed_losses": resumed, "uninterrupted_losses": straight,
+          "max_rel_loss_deviation": max(dev_rel), "limit": RESUME_TOL,
+          "first_resumed_loss_equal": resumed[0] == straight[0]})
+    del first, second, restored, saved
+
+    # ---- 15h. shampoo_seed: the Cholesky norm seed of a 4096 statistic ---
+    gen = torch.Generator(device=dev).manual_seed(SEED + 56)
+    g = torch.randn(cfg.d_model, 4 * cfg.d_model, generator=gen, device=dev)
+    gram = (g @ g.mT) / g.shape[1]
+    damped = stat + 1e-6 * torch.trace(stat) / stat.shape[0] \
+        * torch.eye(stat.shape[0], device=dev)
+    del g
+    seeds = {}
+    for name, a in (("random_gram", gram),
+                    ("trained_l_stat_damped", damped)):
+        ops.reset_launches()
+        seed = float(shampoo_mod.cholesky_norm_seed(a))
+        launched = {n: c_ for n, c_ in ops.launches().items() if c_}
+        norm2 = float(torch.linalg.matrix_norm(a, 2))
+        finite = bool(np.isfinite(seed))      # a float32 Cholesky can fail
+        seeds[name] = {"seed": seed if finite else None, "finite": finite,
+                       "norm2": norm2,
+                       "seed_over_norm2": seed / norm2 if finite else None,
+                       "bracket": finite and seed <= 1.001 * norm2
+                       and norm2 <= a.shape[0] * seed,
+                       "launches": launched}
+    rec = seeds["random_gram"]
+    check(rec["bracket"] and rec["launches"].get("cholesky_panel", 0) > 0,
+          f"shampoo_seed: {rec}")
+    seed_ms = time_ms(lambda: shampoo_mod.cholesky_norm_seed(gram), 3)
+    chol_ms = time_ms(lambda: torch.linalg.cholesky(gram), 3)
+    emit({"phase": "shampoo_seed", "n": gram.shape[0], "dtype": "float32",
+          "block": 32, **seeds, "trained_leaf": stat_leaf,
+          "gated": "random_gram", "ms": seed_ms,
+          "library_cholesky_ms": chol_ms, "nvidia_smi": smi})
+    del gram, damped, stat
+    torch.cuda.empty_cache()
+
     # ---- 16. report --------------------------------------------------------
     sources = {"gemm_accum": "gemm.cu", "trsm": "trsm.cu",
                "lu_panel": "panel_lu.cu", "lu_solve_small": "trsm.cu",
@@ -3410,6 +3800,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/attention.py:105",
         "launches": serve_counts["flash_attention"],
+        "train_launches_per_step":
+            train_recs["phi3_adamw"]["flash_attention_launches_per_step"],
         **bf16_shape(attn_rows, "serve"),
         "shapes": {"prefill_32k": bf16_shape(attn_rows, "prefill_32k")}})
 
@@ -3418,6 +3810,8 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/wkv6.cu",
         "replaces": "src/repro/kernels/wkv6.py:95",
         "launches": serve_rwkv_counts["wkv6_fused"],
+        "train_launches_per_step":
+            train_recs["rwkv6_adamw"]["wkv6_fused_launches_per_step"],
         **bf16_shape(wkv_rows, "serve"),
         "shapes": {key: bf16_shape(wkv_rows, key)
                    for key in ("prefill_32k", "ragged")}})

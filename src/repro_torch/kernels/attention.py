@@ -1,4 +1,4 @@
-"""Blockwise (flash) attention, forward only, and the softmax oracle.
+"""Blockwise (flash) attention, its gradient, and the softmax oracle.
 
 Kernel: ``csrc/flash_attention.cu`` (CUDA C++ for sm_90a), replacing the
 TPU kernel ``repro/kernels/attention.py::flash_attention``.  The source
@@ -31,19 +31,30 @@ aligns its causal mask bottom-right, so it agrees with the kernel only for
 ``Sq == Sk``.
 
 The kernel reads contiguous, 16-byte aligned ``(B, H, S, D)`` operands:
-the wrapper copies a view that is not.  There is no backward (nor has the
-Pallas kernel), so an input that requires a gradient is refused;
-``window`` (local attention) is not ported yet and raises.
+the wrapper copies a view that is not.  ``window`` (local attention) is
+not ported yet and raises.
+
+Gradients.  The kernel has no backward (nor has the Pallas kernel: the
+reference differentiates its plain train-mode attention,
+``repro/models/layers.py::chunked_attention``), so :func:`flash_attention`
+refuses an operand that requires a gradient.  :class:`FlashAttentionFn`
+is the one route for gradients: its forward is :func:`flash_attention` on
+the detached operands (a kernel launch on CUDA tensors), its backward the
+vector–Jacobian product of :func:`chunked_attention_plain`, the
+reference's formulation as differentiable PyTorch ops, recomputed one
+query chunk at a time.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import _build
 
-__all__ = ["flash_attention", "flash_attention_plain", "attention",
+__all__ = ["flash_attention", "flash_attention_plain", "FlashAttentionFn",
+           "flash_attention_train", "chunked_attention_plain", "attention",
            "attn_expect", "attn_faults", "kernel_config", "NEG_INF",
            "HEAD_DIMS"]
 
@@ -73,7 +84,8 @@ def _check(q, k, v, qpos, kpos, window):
             raise ValueError(f"flash_attention {name} must be a 4-D tensor")
         if t.requires_grad:
             raise ValueError("flash_attention has no backward: "
-                             f"{name} requires grad")
+                             f"{name} requires grad (take gradients "
+                             "through FlashAttentionFn)")
     b, h, sq, d = q.shape
     if k.dim() != 4 or k.shape[0] != b or k.shape[3] != d \
             or v.shape != k.shape:
@@ -229,6 +241,110 @@ def flash_attention_plain(q, k, v, qpos=None, kpos=None, *, causal=True,
         l = torch.where(l == 0.0, 1.0, l)
         out[:, :, :, i:i + block_q] = (acc / l).to(q.dtype)
     return out.reshape(b, h, sq, v.shape[-1])
+
+
+def chunked_attention_plain(q, k, v, qpos=None, kpos=None, *, causal=True,
+                            scale=None, chunk_q: int = 512,
+                            chunk_k: int = 1024) -> torch.Tensor:
+    """The reference's train-mode attention
+    (``repro/models/layers.py::chunked_attention``) as differentiable
+    PyTorch ops, in the kernel's layout (``q (B, H, Sq, D)``, ``k``/``v
+    (B, Hkv, Sk, D)``): for each ``chunk_q`` query rows an online softmax
+    over ``chunk_k`` keys at a time, scores and P·V in float32 (float64 for
+    float64 inputs), masked with ``-1e30``, ``l == 0`` divided by 1.
+
+    With gradients on, each query chunk runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+    query block): the backward recomputes the chunk's scores, so no score
+    tensor outlives its chunk.  Returns ``q.dtype``."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    if scale is None:
+        scale = d ** -0.5
+    if qpos is None:
+        qpos = torch.arange(sq, device=q.device)
+    if kpos is None:
+        kpos = torch.arange(sk, device=q.device)
+    cdt = torch.promote_types(q.dtype, torch.float32)
+    cq, ck = min(chunk_q, sq), min(chunk_k, sk)
+    qg = q.reshape(b, hkv, g, sq, d)
+    kf = k.to(cdt).unsqueeze(2)
+    vf = v.to(cdt).unsqueeze(2)
+
+    def q_block(qb, qp, kf, vf):
+        qb = qb.to(cdt)
+        shape = qb.shape[:-1] + (1,)
+        m = torch.full(shape, NEG_INF, dtype=cdt, device=q.device)
+        l = torch.zeros(shape, dtype=cdt, device=q.device)
+        acc = torch.zeros(qb.shape[:-1] + (vf.shape[-1],), dtype=cdt,
+                          device=q.device)
+        for j in range(0, sk, ck):
+            s = torch.matmul(qb, kf[:, :, :, j:j + ck].mT) * scale
+            if causal:
+                s = torch.where(qp[:, None] >= kpos[None, j:j + ck], s,
+                                NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.matmul(p, vf[:, :, :, j:j + ck])
+            m = m_new
+        l = torch.where(l == 0.0, 1.0, l)
+        return (acc / l).to(q.dtype)
+
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    outs = []
+    for i in range(0, sq, cq):
+        args = (qg[:, :, :, i:i + cq], qpos[i:i + cq], kf, vf)
+        outs.append(checkpoint(q_block, *args, use_reentrant=False)
+                    if remat else q_block(*args))
+    return torch.cat(outs, dim=3).reshape(b, h, sq, v.shape[-1])
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with a gradient: the forward is :func:`flash_attention`
+    (on CUDA tensors a launch of the kernel, which counts it), the backward
+    the vector–Jacobian product of :func:`chunked_attention_plain` on the
+    saved operands, bitwise what autograd gives through that function.
+    Arguments as :func:`flash_attention_train`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, kpos, causal, scale, chunk_q, chunk_k):
+        ctx.save_for_backward(q, k, v, qpos, kpos)
+        ctx.opts = dict(causal=causal, scale=scale, chunk_q=chunk_q,
+                        chunk_k=chunk_k)
+        return flash_attention(q.detach(), k.detach(), v.detach(),
+                               causal=causal, scale=scale, qpos=qpos,
+                               kpos=kpos, block_q=chunk_q, block_k=chunk_k)
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, k, v, qpos, kpos = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in
+                   zip((q, k, v), need)]
+            out = chunked_attention_plain(*ins, qpos, kpos, **ctx.opts)
+            got = iter(torch.autograd.grad(
+                out, [t for t, n in zip(ins, need) if n], grad))
+        return tuple(next(got) if n else None for n in need) + (None,) * 6
+
+
+def flash_attention_train(q, k, v, *, causal: bool = True,
+                          scale: float | None = None, qpos=None, kpos=None,
+                          chunk_q: int = 512,
+                          chunk_k: int = 1024) -> torch.Tensor:
+    """:func:`flash_attention` with a gradient (:class:`FlashAttentionFn`):
+    the same layout and result; ``chunk_q``/``chunk_k`` are the plain
+    version's blocks on CPU tensors and the backward's chunks."""
+    d = q.shape[-1]
+    scale = d ** -0.5 if scale is None else float(scale)
+    qpos = _positions("qpos", qpos, q.shape[2], q.device)
+    kpos = _positions("kpos", kpos, k.shape[2], q.device)
+    return FlashAttentionFn.apply(q, k, v, qpos, kpos, causal, scale,
+                                  chunk_q, chunk_k)
 
 
 def attn_expect(q, k, v, *, causal: bool = True, qpos=None, kpos=None):

@@ -1,4 +1,4 @@
-"""The chunked WKV6 recurrence of RWKV6 ("Finch"), forward only.
+"""The chunked WKV6 recurrence of RWKV6 ("Finch"), and its gradient.
 
 Kernel: ``csrc/wkv6.cu`` (CUDA C++ for sm_90a), replacing the TPU kernel
 ``repro/kernels/wkv6.py::wkv6_fused``.  For each (batch, head) it carries
@@ -31,6 +31,16 @@ The plain PyTorch version, :func:`wkv6_fused_plain`, is the reference's
 chunk loop; :func:`wkv6_fused` runs it on CPU tensors.  :func:`wkv6_expect`
 gives the kernel's elementwise tolerance against the plain version run in
 float64, the bound the card's checks hold the kernel to.
+
+Gradients.  The kernel has no backward (nor has the Pallas kernel: the
+reference differentiates its plain ``wkv6_chunked``), so
+:func:`wkv6_fused` refuses an operand that requires a gradient.
+:class:`Wkv6Fn` is the one route for gradients: its forward is
+:func:`wkv6_fused` on the detached operands (a kernel launch on CUDA
+tensors), its backward the vector–Jacobian product of
+:func:`wkv6_fused_plain`, which is the reference's chunk step with its
+clip at ±80 (a clipped exponent passes no gradient, as under
+``jax.grad``) and writes no tensor that autograd saved.
 """
 from __future__ import annotations
 
@@ -43,8 +53,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["wkv6_fused", "wkv6_fused_plain", "wkv6_expect", "wkv6_faults",
-           "plan", "CLIP", "HEAD_DIMS", "MAX_CHUNK"]
+__all__ = ["wkv6_fused", "wkv6_fused_plain", "Wkv6Fn", "wkv6_train",
+           "wkv6_expect", "wkv6_faults", "plan", "CLIP", "HEAD_DIMS",
+           "MAX_CHUNK"]
 
 #: the exponent guard of the reference (``repro/models/rwkv6.py::_CLIP``)
 CLIP = 80.0
@@ -67,7 +78,7 @@ _PLAN_ARGS = [_build.c_i64, ctypes.POINTER(_build.c_i64)]
 _FLAGS: dict = {}
 
 
-def _check(r, k, v, logw, u, s0, chunk):
+def _check(r, k, v, logw, u, s0, chunk, grad=False):
     for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):
         if not isinstance(t, torch.Tensor) or t.dim() != 4:
             raise ValueError(f"wkv6_fused {name} must be a 4-D tensor")
@@ -88,9 +99,9 @@ def _check(r, k, v, logw, u, s0, chunk):
     ts = [r, k, v, logw, u] + ([] if s0 is None else [s0])
     if any(t.device != r.device for t in ts):
         raise ValueError("wkv6_fused: operands on different devices")
-    if any(t.requires_grad for t in ts):
+    if not grad and any(t.requires_grad for t in ts):
         raise ValueError("wkv6_fused has no backward: an operand requires "
-                         "grad")
+                         "grad (take gradients through Wkv6Fn)")
     if int(chunk) < 1:
         raise ValueError(f"wkv6_fused: chunk {chunk} < 1")
 
@@ -238,6 +249,45 @@ def wkv6_fused_plain(r, k, v, logw, u, *, s0=None, chunk: int = 128):
                  + k_fwd.mT @ vv)
         out[:, :, sl] = inter + intra
     return out, state
+
+
+class Wkv6Fn(torch.autograd.Function):
+    """WKV6 with a gradient: the forward is :func:`wkv6_fused` (on CUDA
+    tensors a launch of the kernel, which counts it), the backward the
+    vector–Jacobian product of :func:`wkv6_fused_plain` on the saved
+    operands, bitwise what autograd gives through that function.
+    Arguments as :func:`wkv6_train`."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, s0, chunk):
+        ctx.save_for_backward(r, k, v, logw, u, s0)
+        ctx.chunk = chunk
+        return wkv6_fused(r.detach(), k.detach(), v.detach(), logw.detach(),
+                          u.detach(), s0=None if s0 is None else s0.detach(),
+                          chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, g_out, g_state):
+        saved = ctx.saved_tensors
+        need = [n and t is not None
+                for t, n in zip(saved, ctx.needs_input_grad[:6])]
+        with torch.enable_grad():
+            ins = [None if t is None else t.detach().requires_grad_(n)
+                   for t, n in zip(saved, need)]
+            out, sfin = wkv6_fused_plain(*ins[:5], s0=ins[5],
+                                         chunk=ctx.chunk)
+            got = iter(torch.autograd.grad(
+                (out, sfin), [t for t, n in zip(ins, need) if n],
+                (g_out, g_state)))
+        return tuple(next(got) if n else None for n in need) + (None,)
+
+
+def wkv6_train(r, k, v, logw, u, *, s0=None, chunk: int = 128):
+    """:func:`wkv6_fused` with a gradient (:class:`Wkv6Fn`): the same
+    arguments and results, differentiable in ``r``, ``k``, ``v``,
+    ``logw``, ``u`` and ``s0``."""
+    _check(r, k, v, logw, u, s0, chunk, grad=True)
+    return Wkv6Fn.apply(r, k, v, logw, u, s0, int(chunk))
 
 
 def wkv6_expect(r, k, v, logw, u, *, s0=None, chunk: int = 128):

@@ -8,13 +8,18 @@ The port of :mod:`repro.models.api` for serving:
 * ``prefill(cfg, params, batch, max_len)`` → (last-token logits, cache)
 * ``decode_step(cfg, params, cache, tokens, pos)`` → (logits, cache)
 * ``apply(cfg, params, batch)`` → logits of a full sequence (no gradient)
+* ``apply_train(cfg, params, batch)`` → logits, differentiable
+* ``loss_fn(cfg, params, batch)`` → scalar float32 cross entropy,
+  differentiable
 
-``batch`` is ``{"tokens": (B, S) int}`` (a tensor or a NumPy array); the
-work runs on the params' device.  Logits are float32.  Every call runs
-under ``torch.no_grad`` with the library products at full precision
+``batch`` is ``{"tokens": (B, S) int}`` (a tensor or a NumPy array), with
+``"labels"`` and an optional ``"mask"`` for the loss; the work runs on the
+params' device.  Logits are float32.  ``prefill``, ``decode_step`` and
+``apply`` run under ``torch.no_grad``; ``apply_train`` and ``loss_fn``
+under autograd (gradients of the params that require one).  Every call
+keeps the library products at full precision
 (:func:`repro_torch.core.backend.no_tf32`).  Enc-dec archs raise
-``NotImplementedError``; ``loss_fn`` and ``apply_train`` come with the
-training slice (ROADMAP Queue 1 item 18).
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,10 +29,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.backend import no_tf32
 from repro_torch.device import resolve_device
 from repro_torch.models import convert
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 __all__ = ["init_params", "init_decode_cache", "prefill", "decode_step",
-           "apply", "device_of"]
+           "apply", "apply_train", "loss_fn", "device_of"]
 
 _ENC_DEC_TODO = ("encoder-decoder archs are not ported yet "
                  "(ROADMAP Queue 1 item 18)")
@@ -116,3 +122,30 @@ def apply(cfg: ModelConfig, params, batch) -> torch.Tensor:
     tokens = _tokens(batch["tokens"], device_of(params))
     logits, _ = T.forward(cfg, params, tokens, mode="train")
     return logits
+
+
+def apply_train(cfg: ModelConfig, params, batch) -> torch.Tensor:
+    """Teacher-forced logits (B, S, V), differentiable in the params."""
+    _decoder_only(cfg)
+    no_tf32()
+    tokens = _tokens(batch["tokens"], device_of(params))
+    logits, _ = T.forward(cfg, params, tokens, mode="train")
+    return logits
+
+
+def loss_fn(cfg: ModelConfig, params, batch) -> torch.Tensor:
+    """Token-mean cross entropy (float32 scalar).  With a ``"mask"`` the
+    whole logits go through ``softmax_xent``; without one the unembed and
+    the cross entropy run fused over 512-token chunks
+    (``chunked_unembed_xent``), never holding the (B, S, V) logits."""
+    _decoder_only(cfg)
+    no_tf32()
+    device = device_of(params)
+    labels = _tokens(batch["labels"], device)
+    if batch.get("mask") is not None:
+        mask = torch.as_tensor(batch["mask"]).to(device)
+        return L.softmax_xent(apply_train(cfg, params, batch), labels, mask)
+    tokens = _tokens(batch["tokens"], device)
+    hidden, _ = T.forward(cfg, params, tokens, mode="train",
+                          return_hidden=True)
+    return L.chunked_unembed_xent(cfg, params["embed"], hidden, labels)

@@ -10,6 +10,13 @@ params)``) carries across leaf by leaf.  bfloat16 arrays (NumPy's
 bfloat16 leaves as float32, since NumPy has no bfloat16 of its own.  A leaf
 whose spec names its own dtype (RWKV's float32 ``w0``, ``wa``, ``wb``,
 ``u`` in a bfloat16 model) keeps it both ways.
+
+A train state carries across the same way
+(:func:`train_state_from_numpy`, :func:`train_state_to_numpy`): the
+reference's ``TrainState`` with NumPy leaves — the params, the AdamW or
+DMF-Shampoo state (its float32 moments, statistics and roots) and the
+compression residual — as the port's, so both packages can start from one
+state in the middle of training.
 """
 from __future__ import annotations
 
@@ -20,8 +27,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.tree import tree_map
 
-__all__ = ["init_params", "params_from_numpy", "params_to_numpy"]
+__all__ = ["init_params", "params_from_numpy", "params_to_numpy",
+           "train_state_from_numpy", "train_state_to_numpy"]
 
 
 def init_params(cfg: ModelConfig, seed: int, device=None):
@@ -34,13 +43,15 @@ def init_params(cfg: ModelConfig, seed: int, device=None):
 
 
 def _leaf(arr, dtype, device) -> torch.Tensor:
+    """A tensor of ``arr`` on ``device`` in ``dtype`` (its own when
+    None)."""
     a = np.asarray(arr)
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.array(a).view(np.uint16)).view(
+        t = torch.from_numpy(np.array(a).view(np.int16)).view(
             torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a))
-    return t.to(device=device, dtype=dtype)
+    return t.to(device=device, dtype=dtype or t.dtype)
 
 
 def params_from_numpy(cfg: ModelConfig, params_np: dict, device=None):
@@ -85,3 +96,43 @@ def params_to_numpy(params: dict) -> dict:
                 t = t.float()
             out[name] = t.numpy()
     return out
+
+
+def _opt_state_class(opt):
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.optim.shampoo import ShampooState
+    fields = tuple(getattr(opt, "_fields", ()))
+    for cls in (AdamWState, ShampooState):
+        if fields == cls._fields:
+            return cls
+    raise ValueError(f"optimizer state with fields {fields}: expected "
+                     f"AdamWState {AdamWState._fields} or ShampooState "
+                     f"{ShampooState._fields}")
+
+
+def train_state_from_numpy(cfg: ModelConfig, state, device=None):
+    """The reference's ``TrainState`` with NumPy leaves
+    (``jax.tree.map(np.asarray, state)``; any NamedTuple with the fields
+    ``step, params, opt_state, residual``) as the port's
+    :class:`repro_torch.train.trainer.TrainState` on ``device``: the params
+    by :func:`params_from_numpy`, every other leaf in its own dtype (the
+    optimizer's float32 moments, statistics and roots, its int32 step)."""
+    from repro_torch.train.trainer import TrainState
+    device = resolve_device(device)
+    leaf = lambda a: _leaf(a, None, device)
+    opt = state.opt_state
+    return TrainState(
+        step=leaf(state.step),
+        params=params_from_numpy(cfg, state.params, device),
+        opt_state=_opt_state_class(opt)(*(tree_map(leaf, x) for x in opt)),
+        residual=tree_map(leaf, state.residual))
+
+
+def train_state_to_numpy(state):
+    """The inverse: the port's train state as the same NamedTuples with
+    NumPy leaves (bfloat16 leaves as float32)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return tree_map(leaf, state)

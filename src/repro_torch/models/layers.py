@@ -1,7 +1,7 @@
 """Shared neural layers of the dense decoder (pure functions, explicit params).
 
-The port of :mod:`repro.models.layers` without its loss functions (they
-belong to the training slice).  Params are plain dicts of tensors with the
+The port of :mod:`repro.models.layers`, its loss functions included.
+Params are plain dicts of tensors with the
 reference's names and layouts (``wq`` is ``(d, h·hd)``, ...); each
 ``*_spec`` function gives the shapes and initialisers of a block's params,
 and ``init_*`` fills them from a ``torch.Generator``.
@@ -16,6 +16,12 @@ Attention keeps the reference's grouped layout at these functions'
 boundaries: ``q (B, G, Hg, S, hd)``, ``k``/``v (B, G, S, hd)`` with
 ``G = num_kv_heads`` and ``Hg = num_heads / G``.  The reference's
 ``shard(...)`` annotations are dropped: on one device they do nothing.
+
+Gradients flow through every function here.  Attention takes them
+through :class:`repro_torch.kernels.attention.FlashAttentionFn` when an
+operand requires one (the kernel's forward, the reference formulation's
+backward); :func:`matmul_f32` of bfloat16 operands through
+:class:`MatmulF32Fn`.
 """
 from __future__ import annotations
 
@@ -24,15 +30,18 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels.attention import NEG_INF, flash_attention
+from repro_torch.kernels.attention import (NEG_INF, flash_attention,
+                                           flash_attention_train)
 
 __all__ = ["truncated_normal", "full", "leaf_dtype", "materialize", "rmsnorm", "layernorm",
            "apply_norm", "norm_spec", "init_norm", "rope", "chunked_attention",
            "decode_attention", "attention_spec", "init_attention",
            "attention_qkv", "attention_out", "mlp_spec", "init_mlp",
            "mlp_block", "embed_spec", "init_embed", "embed", "unembed",
-           "matmul_f32"]
+           "matmul_f32", "MatmulF32Fn", "softmax_xent",
+           "chunked_unembed_xent"]
 
 _LOCAL_TODO = ("sliding-window (local) attention is not ported yet "
                "(ROADMAP Queue 1 item 18)")
@@ -92,21 +101,53 @@ def materialize(spec: dict, dtype: torch.dtype, device,
     return out
 
 
+def _mm_f32(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    if x2.dtype == torch.float32 and w.dtype == torch.float32:
+        return x2 @ w
+    if x2.is_cuda:
+        return torch.mm(x2, w, out_dtype=torch.float32)
+    return x2.float() @ w.float()
+
+
+class MatmulF32Fn(torch.autograd.Function):
+    """:func:`matmul_f32` of 2-D operands of a narrower dtype, with a
+    gradient.  The float32 cotangent is rounded to the operands' dtype and
+    each product again summed in float32 into the operand's dtype, as the
+    TPU's default-precision product takes a float32 operand as one
+    bfloat16 pass; one library call each on the card."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return _mm_f32(x2, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm_f32(g.to(w.dtype), w.mT).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _mm_f32(x2.mT, g.to(x2.dtype)).to(w.dtype)
+        return dx, dw
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with float32 output: the products of bfloat16 operands
     summed in float32 and never rounded to bfloat16 (the reference's
     ``preferred_element_type=float32``).  On the card one library call does
     it; on the CPU, which has no such call, the operands go to float32
     first, which gives the same products (a bfloat16 product is exact in
-    float32)."""
+    float32).  With gradients on, narrower operands go through
+    :class:`MatmulF32Fn`."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if x.dtype == torch.float32 and w.dtype == torch.float32:
-        out = x2 @ w
-    elif x.is_cuda:
-        out = torch.mm(x2, w, out_dtype=torch.float32)
+    narrow = not (x.dtype == torch.float32 and w.dtype == torch.float32)
+    if narrow and torch.is_grad_enabled() and (x.requires_grad
+                                               or w.requires_grad):
+        out = MatmulF32Fn.apply(x2, w)
     else:
-        out = x2.float() @ w.float()
+        out = _mm_f32(x2, w)
     return out.reshape(*lead, w.shape[-1])
 
 
@@ -194,7 +235,10 @@ def chunked_attention(q, k, v, qpos, kpos, *, causal=True, window=None,
     One call of :func:`repro_torch.kernels.attention.flash_attention`: on
     CUDA tensors a launch of the kernel (which walks its own 64-key tiles),
     on CPU tensors its plain version over ``chunk_q × chunk_k`` blocks.
-    Both keep the reference's shape rule: ``Sq`` and ``Sk`` divisible by
+    When an operand requires a gradient (and gradients are on) the call
+    goes through ``FlashAttentionFn`` instead: the same forward, and the
+    reference formulation's backward over the same chunks.  Both keep the
+    reference's shape rule: ``Sq`` and ``Sk`` divisible by
     their chunk (or shorter than it).  The grouped
     layout reshapes to the kernel's ``(B, G·Hg, S, d)`` without a copy:
     query head ``g·Hg + j`` reads KV head ``g``.
@@ -211,9 +255,14 @@ def chunked_attention(q, k, v, qpos, kpos, *, causal=True, window=None,
     if sq % cq or sk % ck:
         raise ValueError(f"chunked_attention: Sq {sq} and Sk {sk} must be "
                          f"multiples of their chunks ({cq}, {ck})")
-    out = flash_attention(q.reshape(b, g * hg, sq, d), k, v, causal=causal,
-                          scale=scale, qpos=qpos, kpos=kpos, block_q=cq,
-                          block_k=ck)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out = flash_attention_train(q.reshape(b, g * hg, sq, d), k, v,
+                                    causal=causal, scale=scale, qpos=qpos,
+                                    kpos=kpos, chunk_q=cq, chunk_k=ck)
+    else:
+        out = flash_attention(q.reshape(b, g * hg, sq, d), k, v,
+                              causal=causal, scale=scale, qpos=qpos,
+                              kpos=kpos, block_q=cq, block_k=ck)
     return out.reshape(b, g, hg, sq, dv)
 
 
@@ -343,3 +392,50 @@ def unembed(cfg, p, x):
     """Float32 logits ``(…, V)`` from ``x (…, d)``."""
     w = p["tok"].mT if cfg.tie_embeddings else p["unembed"]
     return matmul_f32(x, w)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean cross entropy in float32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _chunk_nll(h, y, w):
+    logits = matmul_f32(h, w)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, y.long()[..., None])[..., 0]
+    return torch.sum(logz - gold)
+
+
+def chunked_unembed_xent(cfg, embed_params, hidden, labels, *,
+                         chunk: int = 512) -> torch.Tensor:
+    """Fused unembed + cross entropy over sequence chunks of ``chunk``
+    tokens: never holds the full (B, S, V) float32 logits.  With gradients
+    on, each chunk runs under ``torch.utils.checkpoint``, so its logits are
+    recomputed in the backward (the reference's ``jax.checkpoint``).  A
+    sequence that is not a multiple of the chunk takes
+    :func:`softmax_xent` of the whole logits, as the reference does."""
+    w = embed_params["tok"].mT if cfg.tie_embeddings \
+        else embed_params["unembed"]
+    b, s, _ = hidden.shape
+    c = min(chunk, s)
+    if s % c:
+        return softmax_xent(matmul_f32(hidden, w), labels)
+    remat = torch.is_grad_enabled() and (hidden.requires_grad
+                                         or w.requires_grad)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, c):
+        args = (hidden[:, i:i + c], labels[:, i:i + c], w)
+        total = total + (checkpoint(_chunk_nll, *args, use_reentrant=False)
+                         if remat else _chunk_nll(*args))
+    return total / (b * s)

@@ -12,7 +12,9 @@ Prefill and the full forward take the chunked parallel form
 :func:`repro_torch.kernels.wkv6.wkv6_fused`: on CUDA tensors a launch of
 the WKV6 kernel); decode carries ``S`` exactly one token at a time
 (:func:`wkv6_step`, plain tensor ops on every device, as the reference
-computes it without a kernel).  The chunked form clips its exponents at
+computes it without a kernel).  Training differentiates the chunked form
+through :class:`repro_torch.kernels.wkv6.Wkv6Fn` (the kernel's forward,
+the plain chunk loop's backward).  The chunked form clips its exponents at
 ±80 as the reference does, so where the cumulative log-decay inside one
 chunk passes −80 it differs from the token recurrence; the port keeps
 that.
@@ -85,7 +87,13 @@ def _decay(p, xw):
 
 def wkv6_chunked(r, k, v, logw, u, s0, chunk: int):
     """Full-sequence WKV6.  r, k, v, logw: (B, H, S, dk); returns
-    (out (B, H, S, dv) float32, s_final)."""
+    (out (B, H, S, dv) float32, s_final).  When an operand requires a
+    gradient (and gradients are on) it goes through ``Wkv6Fn``: the
+    kernel's forward, the plain chunk loop's backward."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (r, k, v, logw, u, s0)):
+        return K.wkv6_train(r, k, v, logw, u, s0=s0, chunk=chunk)
     return K.wkv6_fused(r, k, v, logw, u, s0=s0, chunk=chunk)
 
 

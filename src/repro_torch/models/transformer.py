@@ -6,8 +6,19 @@ RWKV6 blocks.
 Layers are grouped into :class:`repro_torch.configs.base.Segment` runs of
 identical structure; each segment's params are stacked on a leading layer
 axis, as in the reference, and a Python loop walks the layers (the
-reference's ``lax.scan``).  Nothing here takes a gradient, so there is no
-remat.
+reference's ``lax.scan``); a layer's gradients reach its slice of the
+stacked leaves through the indexing.
+
+``mode="train"`` runs under autograd.  With ``cfg.remat`` (the default)
+each layer of a segment of more than one repeat runs under
+``torch.utils.checkpoint`` (non-reentrant), so its activations are
+recomputed in the backward: the reference's ``jax.checkpoint`` of its scan
+body with the ``"nothing"`` policy, which a segment of one repeat (not
+scanned) skips there too.  The other policies save only some products
+(``"dots"``) or named activations (``"names"``); PyTorch's checkpoint has
+no clean counterpart of either, so they raise ``NotImplementedError``
+(ROADMAP Queue 1 item 18).  ``prefill`` and ``decode`` take no gradient
+(the API runs them under ``torch.no_grad``) and write the cache in place.
 
 Cache model (decode), stacked per segment like the params:
 
@@ -26,6 +37,7 @@ item): ``local`` blocks and the ring cache, ``rg`` (RG-LRU), and MoE MLPs.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, Segment, layer_plan
 from repro_torch.models import layers as L
@@ -40,6 +52,8 @@ _TODO = {
              "ROADMAP Queue 1 item 18",
     "rg": "RG-LRU blocks: ROADMAP Queue 1 item 18",
     "moe": "MoE MLPs: ROADMAP Queue 1 item 18",
+    "remat": "remat policies that save some activations: ROADMAP Queue 1 "
+             "item 18",
 }
 
 
@@ -226,24 +240,43 @@ def _index(tree, i):
             for k, v in tree.items()}
 
 
+def _remat(cfg, seg: Segment, mode) -> bool:
+    """Whether a segment's layers run under checkpoint: train mode with
+    gradients on, ``cfg.remat``, and a scanned segment (repeats > 1)."""
+    if not (mode == "train" and cfg.remat and seg.repeats > 1
+            and torch.is_grad_enabled()):
+        return False
+    if cfg.remat_policy != "nothing":
+        raise _unported("remat")
+    return True
+
+
 def _segment_apply(cfg, seg: Segment, seg_p, x, positions, seg_c, mode):
     """Run one segment: its layers in order (the reference's scan)."""
+    remat = _remat(cfg, seg, mode)
+
+    def body(x, lp, lc):
+        for pi, spec in enumerate(seg.pattern):
+            x, _ = layer_forward(cfg, spec, lp[f"p{pi}"], x, positions,
+                                 None if lc is None else lc[f"c{pi}"], mode)
+        return x
+
     for i in range(seg.repeats):
         lp = seg_p if seg.repeats == 1 else _index(seg_p, i)
         lc = seg_c if seg_c is None or seg.repeats == 1 \
             else _index(seg_c, i)
-        for pi, spec in enumerate(seg.pattern):
-            x, _ = layer_forward(cfg, spec, lp[f"p{pi}"], x, positions,
-                                 None if lc is None else lc[f"c{pi}"], mode)
+        x = checkpoint(body, x, lp, lc, use_reentrant=False) if remat \
+            else body(x, lp, lc)
     return x, seg_c
 
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, params, tokens, *, positions=None, cache=None,
             mode="train", return_hidden=False, last_only=False):
     """tokens: (B, S) → logits (B, S, V) in float32.  Returns
     (logits, cache); ``last_only`` unembeds the last position only
-    (B, 1, V), the same rows at 1/S of the cost."""
+    (B, 1, V), the same rows at 1/S of the cost.  Differentiable in the
+    params when gradients are on; ``return_hidden`` returns the final
+    normed hidden state (B, S, d) instead of the logits."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
